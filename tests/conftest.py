@@ -25,6 +25,9 @@ def pytest_configure(config):
         "markers",
         "slow: long-running large-geometry cases, excluded from the tier-1 "
         "run (select with -m slow)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device (the port's kernels); skips without one")
 
 
 def pytest_collection_modifyitems(config, items):
