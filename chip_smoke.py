@@ -3,10 +3,18 @@
 
 Builds the port's CUDA kernels from the sources in this checkout, holds
 each against its plain-PyTorch version (parity, the adjoint identity of
-the pair, bit-identical repeat launches), drives the main path — CGLS with
-the Joseph A and its exact adjoint, in-core and streamed out-of-core — at
-N=512 (512^3 volume, 512^2 detector, 512 angles) through the port's own
-entry points, and prints the kernels' measurements.
+the Joseph pair, bit-identical repeat launches), drives the port's paths
+at N=512 (512^3 volume, 512^2 detector, 512 angles) through its own entry
+points, and prints the kernels' measurements.  The paths:
+
+* CGLS with the Joseph A (``fp_ray``) and its exact adjoint
+  (``bp_matched``), in-core and streamed out-of-core;
+* FDK on the voxel-driven backprojector (``bp_voxel``), in-core;
+* OS-SART on ``fp_ray`` and ``bp_voxel``, in-core and streamed.
+
+Each path is run with the kernel counters set to 0 just before it and read
+just after, and must have launched the kernels it runs (and called none of
+their plain versions).
 
     python3 chip_smoke.py            # the whole run (one GPU)
     python3 chip_smoke.py --quick    # build and kernel checks at N=64 only
@@ -38,9 +46,17 @@ PEAK_BYTES = 3.35e12       # bytes/s, HBM3
 #: fp32 operations per ray-plane sample (per voxel-angle pair in A^T): the
 #: two y blends, the z blend and the accumulation
 OPS_PER_SAMPLE = 8
+#: fp32 operations per voxel-angle pair in bp_voxel's inner loop, counted
+#: in csrc/bp_voxel.cu: fv 3, floor and fraction 2, tap weights 5, the four
+#: taps 7, depth weight and accumulation 2
+OPS_PER_PAIR_VOXEL = 19
 RTOL, ATOL = 2e-4, 5e-3    # kernel vs plain (tests/test_backend.py:23)
 ADJ_TOL = 1e-4             # relative adjoint defect (tests/test_adjoint.py)
 CGLS_TOL = 2e-3            # algorithm iterates (tests/test_adjoint.py:199)
+SART_TOL = 2e-3            # streamed vs plain (tests/test_algorithms.py:77)
+#: the kernels each path runs (its counter check)
+PATH_KERNELS = {"cgls": ("fp_ray", "bp_matched"), "fdk": ("bp_voxel",),
+                "ossart": ("fp_ray", "bp_voxel")}
 
 
 def log(msg: str) -> None:
@@ -81,6 +97,19 @@ def check_image(res, geo) -> None:
         raise AssertionError("image has non-finite values")
     if not 0.0 < res.rel_err < 1.0:
         raise AssertionError(f"rel_err {res.rel_err}")
+
+
+def check_counts(counts, path: str, what: str) -> None:
+    """The kernels of ``path`` were launched and their plain versions not
+    called; nothing is asked of the other kernels."""
+    for name in PATH_KERNELS[path]:
+        c = counts[name]
+        if c["launches"] <= 0 or c["plain_calls"] != 0:
+            raise AssertionError(f"{name}: {what} ran {c}")
+
+
+def launches_between(before, after):
+    return {k: after[k] - before[k] for k in before}
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -218,11 +247,8 @@ def phase_main_plain(n: int, n_angles: int, iters: int):
     check_image(res, geo)
     if not all(b < a for a, b in zip(res.residuals, res.residuals[1:])):
         raise AssertionError(f"residual did not fall: {res.residuals}")
-    for name, c in counts.items():
-        if c["launches"] <= 0 or c["plain_calls"] != 0:
-            raise AssertionError(f"{name}: main path ran {c}")
-    launches_per_iter = {k: per_iter[1][k] - per_iter[0][k]
-                         for k in per_iter[0]}
+    check_counts(counts, "cgls", "plain CGLS")
+    launches_per_iter = launches_between(per_iter[0], per_iter[1])
     log(f"  launches per CGLS iteration {launches_per_iter}")
     return ds, snaps["x2"], counts, launches_per_iter
 
@@ -267,9 +293,7 @@ def phase_main_stream(n: int, n_angles: int, ds, x2_plain, device_bytes):
         f"init + 2 iterations): "
         + ", ".join(f"{k} {v:.3f}" for k, v in sorted(phases.items()))
         + f", outside spans {wall - sum(phases.values()):.3f}")
-    for name, c in counts.items():
-        if c["launches"] <= 0 or c["plain_calls"] != 0:
-            raise AssertionError(f"{name}: streamed path ran {c}")
+    check_counts(counts, "cgls", "streamed CGLS")
     check_image(res, res.op.geo)
     check_close("stream CGLS x2 vs plain CGLS x2", res.rec,
                 x2_plain.cpu(), rtol=CGLS_TOL, atol=CGLS_TOL)
@@ -291,14 +315,170 @@ def phase_main_stream(n: int, n_angles: int, ds, x2_plain, device_bytes):
     return counts
 
 
+def phase_bp_voxel_checks(n: int, n_angles: int):
+    """bp_voxel against its plain version on the card for each weight,
+    over the whole volume and a z_start > 0 slab, plus an odd,
+    non-power-of-two shape; repeat launches bit-identical."""
+    import torch
+    from repro_torch.core.geometry import ConeGeometry, circular_angles
+    from repro_torch.kernels.bp_voxel import bp_voxel_cuda, bp_voxel_plain
+    n_odd, a_odd = 61, 37
+    log(f"== bp_voxel checks at N={n}, {n_angles} angles and at N={n_odd}, "
+        f"{a_odd} angles")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for nn, na in ((n, n_angles), (n_odd, a_odd)):
+        geo = ConeGeometry.nice(nn)
+        a = torch.from_numpy(circular_angles(na)).cuda()
+        y = torch.randn((na,) + geo.n_detector, generator=gen, device="cuda")
+        for weight in ("fdk", "pmatched", "none"):
+            for part, z0, planes in (("full", 0, nn),
+                                     ("slab", nn // 3, nn // 3 + 1)):
+                tag = f"bp_voxel N={nn} {weight} {part}"
+                got = bp_voxel_cuda(y, geo, a, weight, z0, planes)
+                check_close(tag, got,
+                            bp_voxel_plain(y, geo, a, weight, z0, planes))
+                if not torch.equal(got, bp_voxel_cuda(y, geo, a, weight, z0,
+                                                      planes)):
+                    raise AssertionError(f"{tag}: repeat launch differs")
+    torch.cuda.synchronize()
+    log("  repeat launches bit-identical")
+
+
+def phase_fdk(n: int, n_angles: int, ds):
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.geometry import ConeGeometry
+    from repro_torch.launch.recon import reconstruct
+    log(f"== FDK, plain mode: N={n}, {n_angles} angles")
+    geo = ConeGeometry.nice(n)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counters()
+    res = reconstruct("fdk", n=n, n_angles=n_angles, mode="plain",
+                      device="cuda", dataset=ds)
+    counts = kernels.counters()
+    log(f"  seconds {[round(s, 3) for s in res.seconds]}, rel_err "
+        f"{res.rel_err:.4f}, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"counters {counts}")
+    check_image(res, geo)
+    check_counts(counts, "fdk", "FDK")
+    return counts
+
+
+def phase_ossart_plain(n: int, n_angles: int, ds, iters: int):
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.geometry import ConeGeometry
+    from repro_torch.launch.recon import reconstruct
+    log(f"== OS-SART, plain mode: N={n}, {n_angles} angles, subsets of "
+        f"{max(n_angles // 8, 1)}, {iters} iterations")
+    geo = ConeGeometry.nice(n)
+    per_iter = []
+
+    def cb(it, st):
+        torch.cuda.synchronize()
+        per_iter.append({k: v["launches"]
+                         for k, v in kernels.counters().items()})
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counters()
+    t0 = time.perf_counter()
+    res = reconstruct("ossart", n=n, n_angles=n_angles, iters=iters,
+                      mode="plain", device="cuda", dataset=ds, callback=cb)
+    wall = time.perf_counter() - t0
+    counts = kernels.counters()
+    launches_per_iter = launches_between(per_iter[0], per_iter[1])
+    log(f"  seconds per iteration {[round(s, 3) for s in res.seconds]} "
+        f"({wall:.2f} s with init), rel_err {res.rel_err:.4f}, peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"  counters {counts}; launches per OS-SART iteration "
+        f"{launches_per_iter}")
+    check_image(res, geo)
+    check_counts(counts, "ossart", "plain OS-SART")
+    return res.rec, counts, launches_per_iter
+
+
+def phase_ossart_stream(n: int, n_angles: int, ds, x_plain, device_bytes):
+    import torch
+    from repro_torch import kernels, obs
+    from repro_torch.core.geometry import ConeGeometry
+    from repro_torch.core.streaming import stream_backward
+    from repro_torch.launch.recon import reconstruct
+    log(f"== OS-SART, streamed: N={n}, {n_angles} angles, device budget "
+        f"{device_bytes / 2**20:.0f} MiB, 2 iterations")
+    _, angles, proj = ds
+    tracer = obs.Tracer(enabled=True)
+    prev = obs.set_tracer(tracer)
+    kernels.reset_counters()
+    try:
+        t0 = time.perf_counter()
+        res = reconstruct("ossart", n=n, n_angles=n_angles, iters=2,
+                          mode="stream", device_bytes=device_bytes,
+                          device="cuda", dataset=ds)
+        wall = time.perf_counter() - t0
+    finally:
+        obs.set_tracer(prev)
+    counts = kernels.counters()
+    pl = res.op.plan
+    log(f"  plan: fp {pl.forward.n_slabs} slabs, bp {pl.backward.n_slabs} "
+        f"slabs x chunk {pl.backward.angle_chunk}, prefetch depth "
+        f"{pl.comm.prefetch_depth}")
+    log(f"  seconds per iteration {[round(s, 3) for s in res.seconds]}, "
+        f"rel_err {res.rel_err:.4f}; counters {counts}")
+    phases = tracer.phase_seconds()
+    log(f"  span seconds over the whole run ({wall:.2f} s wall, "
+        f"init + 2 iterations): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in sorted(phases.items()))
+        + f", outside spans {wall - sum(phases.values()):.3f}")
+    check_counts(counts, "ossart", "streamed OS-SART")
+    check_image(res, ConeGeometry.nice(n))
+    check_close("stream OS-SART x2 vs plain OS-SART x2", res.rec,
+                x_plain.cpu(), rtol=SART_TOL, atol=SART_TOL)
+    geo = res.op.geo
+    ba = stream_backward(proj, geo, angles, pl, weight="pmatched",
+                         device="cuda")
+    bb = stream_backward(proj, geo, angles, pl, weight="pmatched",
+                         device="cuda", comm=pl.with_prefetch(0).comm)
+    if not torch.equal(ba, bb):
+        raise AssertionError("stream At(pmatched): prefetch depth changed "
+                             "the bits")
+    log(f"  At(pmatched) bit-identical at prefetch depth "
+        f"{pl.comm.prefetch_depth} and 0")
+    return counts
+
+
+def _row(name, source, replaces, launches, err, ms, plain_ms, t_ops,
+         t_bytes):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None}
+
+
+def _time_kernel(name, kern, plain):
+    """(CUDA-event median of 5, plain ms once, max |err|) of one kernel."""
+    import torch
+    ms = cuda_ms(kern, reps=5)
+    plain_ms, want = once_ms(plain)
+    got = kern()
+    err = check_close(f"{name} at main shapes", got, want)
+    del want, got
+    torch.cuda.empty_cache()
+    return ms, plain_ms, err
+
+
 def phase_times(n: int, n_angles: int, ds, launches, per_iter, smi):
-    """Each kernel at the main path's shapes (the whole volume, one
-    dominance group of angles): CUDA-event median, the plain version once,
-    the error between them, and the bound."""
+    """Each kernel at its main path's shapes: CUDA-event median, the plain
+    version once, the error between them, and the bound.  The Joseph pair
+    takes the whole volume and one dominance group of angles (a CGLS
+    launch), bp_voxel the whole volume and every angle with the pmatched
+    weight (FDK's launch, with OS-SART's weight)."""
     import torch
     from repro_torch.core.geometry import ConeGeometry, dominant_axis_mask
     from repro_torch.kernels.bp_matched import (bp_matched_cuda,
                                                 bp_matched_plain)
+    from repro_torch.kernels.bp_voxel import bp_voxel_cuda, bp_voxel_plain
     from repro_torch.kernels.fp_ray import fp_ray_cuda, fp_ray_plain
     log(f"== kernel times at the main path's shapes (card: {smi})")
     geo = ConeGeometry.nice(n)
@@ -313,15 +493,14 @@ def phase_times(n: int, n_angles: int, ds, launches, per_iter, smi):
     samples = n_a * nv * nu * nx
     vol_bytes, proj_bytes = nz * ny * nx * 4, n_a * nv * nu * 4 + n_a * 32
     t_ops = OPS_PER_SAMPLE * samples / PEAK_FP32
+    t_bytes = (vol_bytes + proj_bytes) / PEAK_BYTES
     rel = adjoint_defect(fp_ray_cuda(vol, geo, a), y, vol,
                          bp_matched_cuda(y, geo, a))
     log(f"  adjoint defect of the kernel pair at the main shapes: {rel:.3g}")
     if not rel <= ADJ_TOL:
         raise AssertionError(f"adjoint defect {rel:.3g} > {ADJ_TOL}")
     rows = []
-    t_bytes = (vol_bytes + proj_bytes) / PEAK_BYTES
-    bound = max(t_ops, t_bytes)
-    for name, kern, plain, route_src, replaces in (
+    for name, kern, plain, src, replaces in (
             ("fp_ray", lambda: fp_ray_cuda(vol, geo, a),
              lambda: fp_ray_plain(vol, geo, a),
              "src/repro_torch/kernels/csrc/fp_ray.cu",
@@ -330,23 +509,32 @@ def phase_times(n: int, n_angles: int, ds, launches, per_iter, smi):
              lambda: bp_matched_plain(y, geo, a),
              "src/repro_torch/kernels/csrc/bp_matched.cu",
              "src/repro/kernels/bp_matched.py:43")):
-        ms = cuda_ms(kern, reps=5)
-        plain_ms, want = once_ms(plain)
-        got = kern()
-        err = check_close(f"{name} at main shapes", got, want)
-        del want, got
-        torch.cuda.empty_cache()
-        row = {"name": name, "route": "cuda", "source": route_src,
-               "replaces": replaces, "launches": launches[name],
-               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": bound * 1e3,
-               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-               "library_ms": None}
-        log(f"  {name}: {ms:.3f} ms (median of 5), plain {plain_ms:.1f} ms, "
-            f"bound {bound * 1e3:.3f} ms ({row['bound_by']}), "
-            f"{per_iter[name]} launches per CGLS iteration, "
-            f"{launches[name]} on the main path")
-        rows.append(row)
+        ms, plain_ms, err = _time_kernel(name, kern, plain)
+        rows.append(_row(name, src, replaces, launches[name], err, ms,
+                         plain_ms, t_ops, t_bytes))
+    # bp_voxel at FDK's shape: every angle, the whole volume
+    a_all = torch.from_numpy(angles).cuda()
+    p_all = proj.contiguous()
+    pairs = nz * ny * nx * a_all.numel()
+    v_ops = OPS_PER_PAIR_VOXEL * pairs / PEAK_FP32
+    v_bytes = (vol_bytes + a_all.numel() * (nv * nu * 4 + 32)) / PEAK_BYTES
+    ms, plain_ms, err = _time_kernel(
+        "bp_voxel", lambda: bp_voxel_cuda(p_all, geo, a_all, "pmatched"),
+        lambda: bp_voxel_plain(p_all, geo, a_all, "pmatched"))
+    rows.append(_row("bp_voxel", "src/repro_torch/kernels/csrc/bp_voxel.cu",
+                     "src/repro/kernels/bp_voxel.py:32", launches["bp_voxel"],
+                     err, ms, plain_ms, v_ops, v_bytes))
+    log("  library: none for any of the three. No single PyTorch call "
+        "projects along rays or transposes that gather; for bp_voxel, "
+        "grid_sample would need an A*Nz*Ny*Nx intermediate "
+        f"({pairs * 4 / 1e9:.0f} GB here)")
+    for row in rows:
+        log(f"  {row['name']}: {row['ms']:.3f} ms (median of 5), plain "
+            f"{row['plain_ms']:.1f} ms, bound {row['bound_ms']:.3f} ms "
+            f"({row['bound_by']}), launches per iteration "
+            + ", ".join(f"{path} {per[row['name']]}"
+                        for path, per in per_iter.items())
+            + f", {row['launches']} on the main paths")
     return rows
 
 
@@ -364,16 +552,26 @@ def main(argv=None) -> int:
     phase_build()
     if args.quick:
         phase_kernel_checks(64, 48)
+        phase_bp_voxel_checks(64, 48)
         log(f"quick run passed in {time.perf_counter() - t_start:.0f}s")
         return 0
     phase_kernel_checks(128, 96)
+    phase_bp_voxel_checks(128, 96)
     n, n_angles = 512, 512
-    ds, x2, counts_plain, per_iter = phase_main_plain(n, n_angles, iters=3)
-    counts_stream = phase_main_stream(n, n_angles, ds, x2,
+    ds, x2, c_cgls, per_cgls = phase_main_plain(n, n_angles, iters=3)
+    c_cgls_stream = phase_main_stream(n, n_angles, ds, x2,
                                       device_bytes=256 << 20)
-    launches = {k: counts_plain[k]["launches"]
-                + counts_stream[k]["launches"] for k in counts_plain}
-    rows = phase_times(n, n_angles, ds, launches, per_iter, smi)
+    del x2
+    c_fdk = phase_fdk(n, n_angles, ds)
+    x_sart, c_sart, per_sart = phase_ossart_plain(n, n_angles, ds, iters=2)
+    c_sart_stream = phase_ossart_stream(n, n_angles, ds, x_sart,
+                                        device_bytes=256 << 20)
+    del x_sart
+    torch.cuda.empty_cache()
+    runs = (c_cgls, c_cgls_stream, c_fdk, c_sart, c_sart_stream)
+    launches = {k: sum(c[k]["launches"] for c in runs) for k in c_cgls}
+    rows = phase_times(n, n_angles, ds, launches,
+                       {"CGLS": per_cgls, "OS-SART": per_sart}, smi)
     log(f"total {time.perf_counter() - t_start:.0f}s")
     print(smi)
     print(json.dumps({"kernels": rows}))

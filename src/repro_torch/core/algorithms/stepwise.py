@@ -11,19 +11,22 @@ everything else is rebuilt by ``init``.  :func:`restore_state` also takes
 the numpy dict the reference's ``checkpoint_state`` writes, which is how a
 run carries over from the JAX package.
 
-Only CGLS is ported; the other algorithms arrive with later slices
-(ROADMAP Queue A 8-9).
+Ported: CGLS, OS-SART / SIRT / SART and FDK; FISTA and ASD-POCS arrive
+with a later slice (ROADMAP Queue A 9).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..operator import CTOperator
 from .cgls import cgls_finalize, cgls_init, cgls_step
+from .fdk import fdk
+from .sart import ossart_finalize, ossart_init, ossart_step
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,21 +37,80 @@ class StepwiseAlgorithm:
     step: Callable[[Any], Any]
     finalize: Callable[[Any], Any]
     ckpt_fields: Tuple[str, ...]
+    iterative: bool = True
     # operator weighting the algorithm assumes: Krylov methods need the
     # exact adjoint
     default_bp_weight: str = "pmatched"
+    # checkpointed scalars that are also valid ``init`` kwargs: fed back
+    # on restore, they need not be recomputed
+    resume_params: Tuple[str, ...] = ()
+
+
+# ---- direct (single-step) algorithms ---------------------------------------
+
+@dataclasses.dataclass
+class FDKState:
+    """One-shot FDK wrapped in the step-wise protocol (a single step)."""
+    op: Any
+    proj: Any
+    geo: Any
+    angles: np.ndarray
+    x: Optional[torch.Tensor] = None
+    it: int = 0
+
+
+def fdk_init(proj, geo, angles, op=None, device=None,
+             **_ignored) -> FDKState:
+    if op is None:
+        op = CTOperator(geo, np.asarray(angles, np.float32), mode="plain",
+                        device=device)
+    return FDKState(op=op, proj=proj, geo=geo,
+                    angles=np.asarray(angles, np.float32))
+
+
+def fdk_step(st: FDKState) -> FDKState:
+    st.x = fdk(st.proj, st.geo, st.angles, op=st.op)
+    st.it += 1
+    return st
+
+
+def fdk_finalize(st: FDKState):
+    return st.x
+
+
+# ---- aliases (SIRT / SART are OS-SART with fixed subset sizes) -------------
+
+def _sirt_init(proj, geo, angles, **params):
+    params["subset_size"] = len(np.asarray(angles))
+    return ossart_init(proj, geo, angles, **params)
+
+
+def _sart_init(proj, geo, angles, **params):
+    params["subset_size"] = 1
+    return ossart_init(proj, geo, angles, **params)
+
+
+def _ossart(name: str, init: Callable) -> StepwiseAlgorithm:
+    return StepwiseAlgorithm(name, init, ossart_step, ossart_finalize,
+                             ckpt_fields=("x", "lmbda", "it"),
+                             resume_params=("lmbda",))
 
 
 REGISTRY: Dict[str, StepwiseAlgorithm] = {
+    "ossart": _ossart("ossart", ossart_init),
+    "sirt": _ossart("sirt", _sirt_init),
+    "sart": _ossart("sart", _sart_init),
     "cgls": StepwiseAlgorithm(
         "cgls", cgls_init, cgls_step, cgls_finalize,
         ckpt_fields=("x", "r", "p", "gamma", "it"),
         default_bp_weight="matched"),
+    "fdk": StepwiseAlgorithm(
+        "fdk", fdk_init, fdk_step, fdk_finalize,
+        ckpt_fields=("x", "it"), iterative=False),
 }
 
-#: the reference's catalogue, ported by later slices
-NOT_YET_PORTED = ("ossart", "sirt", "sart", "fista", "fista_tv", "asd_pocs",
-                  "fdk")
+#: the reference's catalogue, ported by a later slice
+NOT_YET_PORTED = ("fista", "fista_tv", "asd_pocs")
 
 
 def get_algorithm(name: str) -> StepwiseAlgorithm:
@@ -58,7 +120,7 @@ def get_algorithm(name: str) -> StepwiseAlgorithm:
         if name in NOT_YET_PORTED:
             raise ValueError(
                 f"algorithm {name!r} is not ported yet (ROADMAP Queue A "
-                f"8-9); ported: {sorted(REGISTRY)}") from None
+                f"9); ported: {sorted(REGISTRY)}") from None
         raise ValueError(f"unknown algorithm {name!r}; "
                          f"known: {sorted(REGISTRY)}") from None
 
@@ -92,4 +154,5 @@ def restore_state(alg: StepwiseAlgorithm, state, ckpt: Dict[str, Any]):
 
 
 __all__ = ["StepwiseAlgorithm", "REGISTRY", "get_algorithm",
-           "checkpoint_state", "restore_state"]
+           "checkpoint_state", "restore_state",
+           "FDKState", "fdk_init", "fdk_step", "fdk_finalize"]

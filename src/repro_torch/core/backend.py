@@ -9,9 +9,9 @@ slab-operator surface:
 * ``"ref"``  — the plain-PyTorch projectors in
   :mod:`repro_torch.core.projector` (runs everywhere; the parity oracle);
 * ``"cuda"`` — the hand-written kernels in :mod:`repro_torch.kernels`
-  (``fp_ray``, ``bp_matched``).  On a CPU tensor each kernel wrapper runs
-  its plain version, so the backend's plumbing (rotation, adjoint pairing,
-  dispatch) is exercised by the CPU tests too;
+  (``fp_ray``, ``bp_matched``, ``bp_voxel``).  On a CPU tensor each kernel
+  wrapper runs its plain version, so the backend's plumbing (rotation,
+  adjoint pairing, dispatch) is exercised by the CPU tests too;
 * ``"auto"`` — resolves from the device: ``"cuda"`` on a CUDA device,
   ``"ref"`` on the CPU.
 
@@ -40,12 +40,6 @@ from .. import obs
 from . import projector as proj_mod
 from .device import DeviceLike, resolve_device
 from .geometry import ConeGeometry
-
-#: the voxel-driven weights wait for the FDK / SART slice
-_BP_LATER = ("bp(weight={!r}) is the voxel-driven backprojector, which "
-             "arrives with the FDK / OS-SART slice (ROADMAP Queue A 8, "
-             "Queue B 3); only weight='matched' is ported")
-
 
 # --------------------------------------------------------------------------
 # dispatch table
@@ -132,8 +126,9 @@ class KernelBackend:
     * ``fp(geo, xdom=...)``               -> ``f(slab, angles, z0) -> proj``
       partial forward projection of the z planes ``[z0, z0+len(slab))``
       for a single-dominance angle set;
-    * ``bp(geo, planes=..., weight=...)`` — the voxel-driven
-      backprojection, not ported yet (raises ``NotImplementedError``);
+    * ``bp(geo, planes=..., weight=...)`` -> ``f(proj, angles, z0) ->
+      slab`` — the voxel-driven backprojection (weight fdk / pmatched /
+      none) of any angle set into the z planes ``[z0, z0+planes)``;
     * ``bp_matched(geo, planes=..., xdom=...)`` -> ``f(proj, angles, z0)
       -> slab`` — the *exact* adjoint of the slab forward projection.
 
@@ -155,7 +150,7 @@ class KernelBackend:
 
     def bp(self, geo: ConeGeometry, *, planes: int,
            weight: str) -> Callable:
-        raise NotImplementedError(_BP_LATER.format(weight))
+        raise NotImplementedError
 
     def bp_matched(self, geo: ConeGeometry, *, planes: int,
                    xdom: bool) -> Callable:
@@ -234,6 +229,16 @@ class RefBackend(KernelBackend):
             return f
         return _TABLE.get(("ref", "fp", geo, xdom), build)
 
+    def bp(self, geo: ConeGeometry, *, planes: int,
+           weight: str) -> Callable:
+        def build():
+            def f(proj, angles, z0):
+                return proj_mod.backproject_voxel(
+                    proj, geo, angles, weight=weight, z_start=z0,
+                    z_planes=planes)
+            return f
+        return _TABLE.get(("ref", "bp", geo, planes, weight), build)
+
 
 class _JosephFP(torch.autograd.Function):
     """The kernel pair as one differentiable op: forward launches
@@ -258,7 +263,8 @@ class _JosephFP(torch.autograd.Function):
 
 class CudaBackend(KernelBackend):
     """The hand-written CUDA kernels (:mod:`repro_torch.kernels.fp_ray`,
-    :mod:`repro_torch.kernels.bp_matched`).
+    :mod:`repro_torch.kernels.bp_matched`,
+    :mod:`repro_torch.kernels.bp_voxel`).
 
     The matched weighting is native: ``fp`` is the autograd pair above,
     and ``bp_matched`` / ``at_matched_mixed`` hand out the matched kernel
@@ -282,6 +288,18 @@ class CudaBackend(KernelBackend):
                 return _JosephFP.apply(slab, geo, angles, z0)
             return f
         return _TABLE.get(("cuda", "fp", geo, xdom), build)
+
+    def bp(self, geo: ConeGeometry, *, planes: int,
+           weight: str) -> Callable:
+        """The voxel-driven kernel: one launch over all the angles passed,
+        whatever their dominance."""
+        def build():
+            from ..kernels.bp_voxel import bp_voxel
+
+            def f(proj, angles, z0):
+                return bp_voxel(proj, geo, angles, weight, z0, planes)
+            return f
+        return _TABLE.get(("cuda", "bp", geo, planes, weight), build)
 
     def bp_matched(self, geo: ConeGeometry, *, planes: int,
                    xdom: bool) -> Callable:

@@ -4,7 +4,8 @@ Port of ``repro/core/operator.py``.  The paper's point is that the *same*
 algorithms run regardless of how the operators are executed ("TIGRE's
 architecture is modular, thus all of the GPU code is independent from the
 algorithm that uses it").  ``CTOperator`` exposes ``A`` (forward) and
-``At`` (exact adjoint) and hides the execution:
+``At`` (the exact adjoint, or a voxel-driven backprojection) and hides the
+execution:
 
 * ``mode="plain"``  -- the volume and projections live on the device;
 * ``mode="stream"`` -- the paper's out-of-core executor: they live in host
@@ -39,8 +40,9 @@ class CTOperator:
     ----------
     geo, angles : geometry and the (static, numpy) gantry angles.
     mode : "plain" | "stream".
-    bp_weight : default backprojection weighting; only "matched" (the
-        exact adjoint) is ported.
+    bp_weight : default backprojection weighting: "matched" (the exact
+        adjoint of ``A``) or a voxel-driven weight, "fdk", "pmatched" or
+        "none".
     memory : memory model of the device (defaults to an 11 GiB device);
         ``mode="stream"`` splits the volume to fit it.
     backend : kernel backend name ("ref" | "cuda" | "auto"/None).
@@ -96,23 +98,28 @@ class CTOperator:
         nz = self.geo.n_voxel[0]
         present = [xd for xd, any_ in ((True, self._xdom.any()),
                                        (False, (~self._xdom).any())) if any_]
-        if weight != "matched":
-            self._backend.bp(self.geo, planes=nz, weight=weight)   # raises
         if self.mode == "plain":
             self._backend.fp_mixed(self.geo, self._xdom)
-            self._backend.at_matched_mixed(self.geo, self._xdom)
+            if weight == "matched":
+                self._backend.at_matched_mixed(self.geo, self._xdom)
+            else:
+                self._backend.bp(self.geo, planes=nz, weight=weight)
         else:
             for xd in present:
                 self._backend.fp(self.geo, xdom=xd)
-                for z0, z1 in self.plan.backward.slab_ranges:
+            for z0, z1 in self.plan.backward.slab_ranges:
+                if weight != "matched":
+                    self._backend.bp(self.geo, planes=z1 - z0,
+                                     weight=weight)
+                    continue
+                for xd in present:
                     self._backend.bp_matched(self.geo, planes=z1 - z0,
                                              xdom=xd)
         if self.backend_name == "cuda" and self.device.type == "cuda":
             from ..kernels import build
-            from ..kernels.fp_ray import launch_entry
             build.build()
             for name in build.SOURCES:
-                launch_entry(name)
+                build.entry(name)
 
     def kernel_config(self) -> dict:
         """The backend's tunable block-size config for this geometry."""
@@ -142,7 +149,7 @@ class CTOperator:
                                    backend=self.backend_name)
         if weight != "matched":
             bp = self._backend.bp(self.geo, planes=self.geo.n_voxel[0],
-                                  weight=weight)                   # raises
+                                  weight=weight)
             return bp(as_f32(proj, self.device), a_dev, 0)
         at = self._backend.at_matched_mixed(self.geo, mask)
         return at(as_f32(proj, self.device), a_dev)

@@ -7,14 +7,17 @@ Port of ``repro/core/projector.py`` (the Joseph part):
   slab decomposition is exact (paper's splitting claim).  y-dominant angles
   rotate the scene by -90 deg and become x-dominant.
 * ``forward_project`` -- an arbitrary mix of angles, split by dominance.
+* ``backproject_voxel`` -- voxel-driven backprojection with the fdk /
+  pmatched / none depth weights (paper SS2.2);
 * ``backproject_matched`` -- the *exact* adjoint of ``forward_project``,
-  taken with ``torch.func.vjp`` as the reference takes it with ``jax.vjp``.
+  taken with ``torch.func.vjp`` as the reference takes it with ``jax.vjp``;
+* ``backproject`` -- the dispatch between the two.
 
 The gather formulation is kept: the only scatter is the one autograd makes
 for the adjoint.  Volumes are ``(Nz, Ny, Nx)`` float32, projections
-``(n_angles, Nv, Nu)`` float32, angles a float32 tensor.  The voxel-driven
-backprojector and the interpolated oracle projector arrive with later
-slices (ROADMAP Queue A).
+``(n_angles, Nv, Nu)`` float32, angles a float32 tensor.  The interpolated
+oracle projector ``forward_project_interp`` is not ported yet (ROADMAP
+Queue A).
 """
 
 from __future__ import annotations
@@ -26,6 +29,9 @@ import numpy as np
 import torch
 
 from .geometry import ConeGeometry, dominant_axis_mask
+
+#: the weights of the voxel-driven backprojector
+VOXEL_WEIGHTS = ("fdk", "pmatched", "none")
 
 
 def bilinear_gather(img: torch.Tensor, fi: torch.Tensor,
@@ -193,3 +199,68 @@ def backproject_matched(proj: torch.Tensor, geo: ConeGeometry,
     _, vjp = torch.func.vjp(
         lambda v: forward_project(v, geo, angles, mask), zeros)
     return vjp(proj)[0]
+
+
+def backproject_voxel(proj: torch.Tensor, geo: ConeGeometry, angles,
+                      weight: str = "fdk", z_start=0,
+                      z_planes: Optional[int] = None) -> torch.Tensor:
+    """Voxel-driven backprojection (paper SS2.2).
+
+    ``weight``:
+      * ``"fdk"``      -- (DSO / (DSO - p))^2 depth weights (FDK);
+      * ``"pmatched"`` -- TIGRE's "pseudo-matched" weighting
+        (DSD / (DSO - p))^2 * DSO / DSD;
+      * ``"none"``     -- plain smearing.
+
+    ``z_start`` + ``z_planes`` select an axial slab; the angle axis is
+    additive, so backprojecting angle chunks and summing reproduces the
+    whole.  Returns the un-normalised accumulation over angles, the
+    detector position of each voxel taken as ``fv = (Z * mag - offv) / dv
+    + (nv - 1) / 2`` as in the reference projector."""
+    if weight not in VOXEL_WEIGHTS:
+        raise ValueError(f"unknown weight {weight!r}")
+    nz, ny, nx = geo.n_voxel
+    dz, dy, dx = geo.d_voxel
+    dv, du = geo.d_detector
+    offz, offy, offx = geo.off_origin
+    offv, offu = geo.off_detector
+    nv, nu = geo.n_detector
+    planes = nz if z_planes is None else int(z_planes)
+    dev = proj.device
+    angles = torch.as_tensor(angles, dtype=torch.float32).to(dev)
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    xs = (torch.arange(nx, **f32) - (nx - 1) / 2.0) * dx + offx
+    ys = (torch.arange(ny, **f32) - (ny - 1) / 2.0) * dy + offy
+    zs = (torch.arange(planes, **f32) + z_start - (nz - 1) / 2.0) * dz + offz
+    X = xs[None, None, :]
+    Y = ys[None, :, None]
+    Z = zs[:, None, None]
+    out = torch.zeros((planes, ny, nx), dtype=torch.float32, device=dev)
+    for theta, p2d in zip(angles, proj):
+        cth, sth = torch.cos(theta), torch.sin(theta)
+        p = X * cth + Y * sth                  # depth along the source axis
+        q = -X * sth + Y * cth
+        depth = geo.DSO - p
+        mag = geo.DSD / depth
+        fu = (q * mag - offu) / du + (nu - 1) / 2.0
+        fv = (Z * mag - offv) / dv + (nv - 1) / 2.0
+        # broadcast (planes,1,1) x (1,Ny,Nx) index fields to the slab
+        val = bilinear_gather(p2d, fv + 0.0 * fu, fu + 0.0 * fv)
+        if weight == "fdk":
+            w = (geo.DSO / depth) ** 2
+        elif weight == "pmatched":
+            w = (geo.DSD / depth) ** 2 * (geo.DSO / geo.DSD)
+        else:
+            w = torch.ones_like(depth)
+        out = out + val * w
+    return out
+
+
+def backproject(proj: torch.Tensor, geo: ConeGeometry, angles,
+                weight: str = "fdk") -> torch.Tensor:
+    """Dispatch: ``weight='matched'`` takes the exact adjoint, any other
+    weight the voxel-driven backprojector."""
+    if weight == "matched":
+        return backproject_matched(proj, geo, angles)
+    return backproject_voxel(proj, geo, angles, weight=weight)

@@ -36,6 +36,7 @@ from .backend import get_backend
 from .device import DeviceLike, resolve_device
 from .geometry import ConeGeometry, dominant_axis_mask
 from .plan import CommSchedule, ExecutionPlan, _bp_comm_steps, _fp_comm_steps
+from .projector import VOXEL_WEIGHTS
 from .splitting import BackwardPlan, ForwardPlan
 
 
@@ -182,18 +183,19 @@ def stream_backward(proj, geo: ConeGeometry, angles,
                     weight: str = "matched", device: DeviceLike = None,
                     backend: Optional[str] = None,
                     comm: Optional[CommSchedule] = None) -> torch.Tensor:
-    """Out-of-core exact-adjoint backprojection: an interpreter over the
-    plan's BP step list.  Every slab consumes the projection set in
-    ``angle_chunk`` pieces while its accumulator stays on the device; when
-    the schedule keeps every chunk resident (``bp_chunk_reuse``), later
-    slabs reuse the chunks staged for the first (the step list carries no
-    h2d steps for them).  Chunks are accumulated in increasing order per
-    slab.  Returns the volume as a host tensor.  Only ``weight="matched"``
-    is ported; the voxel-driven weights arrive with the FDK / SART slice."""
-    if weight != "matched":
-        raise NotImplementedError(
-            f"stream_backward(weight={weight!r}): the voxel-driven weights "
-            "arrive with the FDK / OS-SART slice (ROADMAP Queue A 8)")
+    """Out-of-core backprojection: an interpreter over the plan's BP step
+    list.  Every slab consumes the projection set in ``angle_chunk``
+    pieces while its accumulator stays on the device; when the schedule
+    keeps every chunk resident (``bp_chunk_reuse``), later slabs reuse the
+    chunks staged for the first (the step list carries no h2d steps for
+    them).  Chunks are accumulated in increasing order per slab, so every
+    prefetch depth gives the same bits.  ``weight="matched"`` runs the
+    exact adjoint (one matched slab kernel per dominance subset of a
+    chunk); ``"fdk"`` / ``"pmatched"`` / ``"none"`` the voxel-driven
+    backprojector, one call per chunk.  Returns the volume as a host
+    tensor."""
+    if weight != "matched" and weight not in VOXEL_WEIGHTS:
+        raise ValueError(f"unknown weight {weight!r}")
     if isinstance(plan, ExecutionPlan):
         if comm is None:
             comm = plan.comm
@@ -257,10 +259,14 @@ def stream_backward(proj, geo: ConeGeometry, angles,
             stager.ready(ev)
             with obs.span("compute", "compute", op="bp", slab=k, chunk=ci,
                           device=st.device):
-                for xdom, sub in subsets[ci]:
-                    fn = bk.bp_matched(geo, planes=z1 - z0, xdom=xdom)
-                    acc[k].add_(fn(cur_p.index_select(0, sub), cur_a[sub],
-                                   z0))
+                if weight == "matched":
+                    for xdom, sub in subsets[ci]:
+                        fn = bk.bp_matched(geo, planes=z1 - z0, xdom=xdom)
+                        acc[k].add_(fn(cur_p.index_select(0, sub),
+                                       cur_a[sub], z0))
+                else:
+                    fn = bk.bp(geo, planes=z1 - z0, weight=weight)
+                    acc[k].add_(fn(cur_p, cur_a, z0))
                 stager.sync()
             if last_use.get(ci) == idx:
                 staged.pop(ci, None)

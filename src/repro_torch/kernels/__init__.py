@@ -2,6 +2,8 @@
 
 * :mod:`.fp_ray` — the Joseph forward projector A (``csrc/fp_ray.cu``);
 * :mod:`.bp_matched` — its exact adjoint A^T (``csrc/bp_matched.cu``);
+* :mod:`.bp_voxel` — the voxel-driven backprojector of FDK and the SART
+  family (``csrc/bp_voxel.cu``);
 * :mod:`.build` — ``nvcc`` at first use, ``ctypes`` loading.
 
 Importing this package builds and loads nothing.
@@ -12,10 +14,13 @@ from __future__ import annotations
 from typing import Dict
 
 from .bp_matched import bp_matched_cuda, bp_matched_plain
+from .bp_voxel import bp_voxel_cuda, bp_voxel_plain
 from .fp_ray import fp_ray_cuda, fp_ray_plain
 
-_LAUNCHES = {"fp_ray": fp_ray_cuda, "bp_matched": bp_matched_cuda}
-_PLAIN = {"fp_ray": fp_ray_plain, "bp_matched": bp_matched_plain}
+_LAUNCHES = {"fp_ray": fp_ray_cuda, "bp_matched": bp_matched_cuda,
+             "bp_voxel": bp_voxel_cuda}
+_PLAIN = {"fp_ray": fp_ray_plain, "bp_matched": bp_matched_plain,
+          "bp_voxel": bp_voxel_plain}
 
 
 def reset_counters() -> None:

@@ -28,16 +28,21 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-#: kernel name -> its source under csrc/ (each includes joseph_common.cuh)
-SOURCES = {"fp_ray": "fp_ray.cu", "bp_matched": "bp_matched.cu"}
-HEADERS = ("joseph_common.cuh",)
+#: kernel name -> its source under csrc/
+SOURCES = {"fp_ray": "fp_ray.cu", "bp_matched": "bp_matched.cu",
+           "bp_voxel": "bp_voxel.cu"}
+#: kernel name -> the headers under csrc/ its source includes
+HEADERS = {"fp_ray": ("joseph_common.cuh",),
+           "bp_matched": ("joseph_common.cuh",),
+           "bp_voxel": ()}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_ENTRIES: Dict[str, Callable[..., int]] = {}
 _LOCK = threading.Lock()
 
 
@@ -60,7 +65,7 @@ def nvcc_path() -> str:
 def library_path(name: str) -> Path:
     """Where ``name``'s library lives; the digest covers every input."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for fname in (SOURCES[name],) + HEADERS:
+    for fname in (SOURCES[name],) + HEADERS[name]:
         h.update((CSRC / fname).read_bytes())
     return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
 
@@ -117,8 +122,29 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-#: ctypes signature shared by both C entries (see csrc/*.cu):
-#: four pointers, n_angles, nz, ny, nx, nz_slab, nv, nu, ten floats
-#: (dz dy dx dv du offz offy offv offu z0), device, stream
-LAUNCH_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-                   + [ctypes.c_float] * 10 + [ctypes.c_int, ctypes.c_void_p])
+#: ctypes signature of the Joseph pair's entries (csrc/fp_ray.cu,
+#: csrc/bp_matched.cu): four pointers, n_angles, nz, ny, nx, nz_slab, nv,
+#: nu, ten floats (dz dy dx dv du offz offy offv offu z0), device, stream
+JOSEPH_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                   + [ctypes.c_float] * 10
+                   + [ctypes.c_int, ctypes.c_void_p])
+#: ctypes signature of csrc/bp_voxel.cu's entry: proj, consts, out;
+#: n_angles nz ny nx planes nv nu; fourteen floats (dz dy dx dv du offz
+#: offy offx offv/dv offu DSO DSD DSO/DSD z_start); weight, device, stream
+VOXEL_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+                  + [ctypes.c_float] * 14
+                  + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+ARGTYPES = {"fp_ray": JOSEPH_ARGTYPES, "bp_matched": JOSEPH_ARGTYPES,
+            "bp_voxel": VOXEL_ARGTYPES}
+
+
+def entry(name: str):
+    """The C entry ``<name>_launch`` of kernel ``name``, typed with its
+    own signature (every entry returns ``cudaGetLastError()``)."""
+    fn = _ENTRIES.get(name)
+    if fn is None:
+        fn = getattr(load(name), f"{name}_launch")
+        fn.argtypes = ARGTYPES[name]
+        fn.restype = ctypes.c_int
+        _ENTRIES[name] = fn
+    return fn

@@ -163,20 +163,6 @@ def _fp_plain(vol, geo, angles, z0):
 # the CUDA kernel's wrapper
 # --------------------------------------------------------------------------
 
-_ENTRY = {}
-
-
-def launch_entry(name: str):
-    """The C entry ``<name>_launch`` of kernel ``name``, typed."""
-    fn = _ENTRY.get(name)
-    if fn is None:
-        fn = getattr(build.load(name), f"{name}_launch")
-        fn.argtypes = build.LAUNCH_ARGTYPES
-        fn.restype = build.ctypes.c_int
-        _ENTRY[name] = fn
-    return fn
-
-
 def launch(name: str, inp: torch.Tensor, consts: torch.Tensor,
            xc: torch.Tensor, out: torch.Tensor, geo: ConeGeometry,
            nz_slab: int, z0) -> None:
@@ -190,7 +176,7 @@ def launch(name: str, inp: torch.Tensor, consts: torch.Tensor,
     offv, offu = geo.off_detector
     dev = inp.device
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = launch_entry(name)(
+    rc = build.entry(name)(
         inp.data_ptr(), consts.data_ptr(), xc.data_ptr(), out.data_ptr(),
         consts.shape[0], nz, ny, nx, nz_slab, nv, nu,
         dz, dy, dx, dv, du, offz, offy, offv, offu, float(z0),

@@ -12,6 +12,11 @@ Usage::
     # out-of-core on a small simulated device budget:
     PYTHONPATH=src python -m repro_torch.launch.recon --alg cgls --n 64 \
         --angles 96 --iters 4 --mode stream --device-bytes 2000000
+    # OS-SART (subsets of n_angles // 8), SIRT, SART, or one-shot FDK:
+    PYTHONPATH=src python -m repro_torch.launch.recon --alg ossart --n 64 \
+        --angles 96 --iters 2
+    PYTHONPATH=src python -m repro_torch.launch.recon --alg fdk --n 64 \
+        --angles 96
     # the plain-PyTorch versions on the CPU:
     ... --device cpu
 
@@ -38,13 +43,21 @@ from ..data import make_ct_dataset
 @dataclasses.dataclass
 class ReconResult:
     """What one run produced: the image, its error against the phantom,
-    the residual norm before the first and after every iteration, and the
-    wall seconds of every iteration (each ends in a device sync)."""
+    the wall seconds of every step (each ends in a device sync) and, for
+    an algorithm whose state carries a residual (CGLS), its norm before
+    the first and after every step (empty for the others)."""
     rec: torch.Tensor
     rel_err: float
     residuals: List[float]
     seconds: List[float]
     op: CTOperator
+
+
+def _job_params(algname: str, n_angles: int) -> dict:
+    """Algorithm parameters the driver sets (as the reference's)."""
+    if algname == "ossart":
+        return {"subset_size": max(n_angles // 8, 1)}
+    return {}
 
 
 def reconstruct(algname: str = "cgls", n: int = 64, n_angles: int = 96,
@@ -53,9 +66,10 @@ def reconstruct(algname: str = "cgls", n: int = 64, n_angles: int = 96,
                 dataset=None,
                 callback: Optional[Callable] = None) -> ReconResult:
     """Reconstruct the N^3 Shepp-Logan phantom from ``n_angles``
-    projections with ``iters`` iterations of ``algname``.  ``dataset``
-    reuses a ``make_ct_dataset`` result for the same geometry;
-    ``callback(it, state)`` runs after every iteration."""
+    projections with ``iters`` iterations of ``algname`` (one step for a
+    direct algorithm such as FDK).  ``dataset`` reuses a
+    ``make_ct_dataset`` result for the same geometry; ``callback(it,
+    state)`` runs after every step."""
     alg = get_algorithm(algname)
     dev = resolve_device(device)
     geo = ConeGeometry.nice(n)
@@ -66,13 +80,17 @@ def reconstruct(algname: str = "cgls", n: int = 64, n_angles: int = 96,
     op = CTOperator(geo, angles, mode=mode, bp_weight=alg.default_bp_weight,
                     memory=mem, device=dev)
     t_start = time.perf_counter()
-    st = alg.init(proj, geo, angles, op=op)
-    residuals = [float(torch.linalg.norm(st.r))]
+    st = alg.init(proj, geo, angles, op=op, **_job_params(algname, n_angles))
+    has_r = hasattr(st, "r")
+    residuals = [float(torch.linalg.norm(st.r))] if has_r else []
     seconds = []
-    for it in range(iters):
+    for it in range(iters if alg.iterative else 1):
         t0 = time.perf_counter()
         st = alg.step(st)
-        residuals.append(float(torch.linalg.norm(st.r)))   # syncs
+        if has_r:
+            residuals.append(float(torch.linalg.norm(st.r)))   # syncs
+        elif dev.type == "cuda":
+            torch.cuda.synchronize(dev)
         seconds.append(time.perf_counter() - t0)
         if callback is not None:
             callback(it, st)
@@ -80,7 +98,8 @@ def reconstruct(algname: str = "cgls", n: int = 64, n_angles: int = 96,
     vol_d = vol.to(rec.device)
     rel = float(torch.linalg.norm(rec - vol_d) / torch.linalg.norm(vol_d))
     if verbose:
-        print(f"[recon] {algname} N={n} angles={n_angles} iters={iters} "
+        print(f"[recon] {algname} N={n} angles={n_angles} "
+              f"iters={len(seconds)} "
               f"mode={mode} device={dev}: rel_err={rel:.4f} "
               f"({time.perf_counter() - t_start:.1f}s)")
     return ReconResult(rec=rec, rel_err=rel, residuals=residuals,
@@ -89,7 +108,8 @@ def reconstruct(algname: str = "cgls", n: int = 64, n_angles: int = 96,
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--alg", default="cgls")
+    ap.add_argument("--alg", default="cgls",
+                    choices=("cgls", "ossart", "sirt", "sart", "fdk"))
     ap.add_argument("--n", type=int, default=64)
     ap.add_argument("--angles", type=int, default=96)
     ap.add_argument("--iters", type=int, default=10)

@@ -114,7 +114,9 @@ def test_resume_from_a_jax_checkpoint(proj, jax_x6, mode):
 
 def test_registry_points_to_the_roadmap():
     assert get_algorithm("cgls").default_bp_weight == "matched"
-    for name in ("ossart", "fista", "fdk", "asd_pocs"):
+    for name in ("ossart", "sirt", "sart", "fdk"):
+        assert get_algorithm(name).default_bp_weight == "pmatched"
+    for name in ("fista", "fista_tv", "asd_pocs"):
         with pytest.raises(ValueError, match="ROADMAP"):
             get_algorithm(name)
     with pytest.raises(ValueError, match="unknown algorithm"):

@@ -1,5 +1,6 @@
 """The port on the card: each CUDA kernel against its plain version, and
-the operator, streaming executor and CGLS running through the kernels.
+the operator, streaming executor, CGLS, FDK and OS-SART running through
+the kernels.
 
 Every test here needs a CUDA device and ``nvcc`` (the kernels build at
 first use) and skips without a device.  The file imports nothing of JAX,
@@ -18,13 +19,14 @@ import pytest
 import torch
 
 from repro_torch import kernels
-from repro_torch.core.algorithms import cgls
+from repro_torch.core.algorithms import cgls, fdk, ossart
 from repro_torch.core.geometry import (ConeGeometry, circular_angles,
                                        dominant_axis_mask)
 from repro_torch.core.operator import CTOperator
 from repro_torch.core.splitting import MemoryModel
 from repro_torch.core.streaming import stream_backward, stream_forward
 from repro_torch.kernels.bp_matched import bp_matched_cuda, bp_matched_plain
+from repro_torch.kernels.bp_voxel import bp_voxel_cuda, bp_voxel_plain
 from repro_torch.kernels.fp_ray import fp_ray_cuda, fp_ray_plain
 
 pytestmark = pytest.mark.cuda
@@ -151,3 +153,57 @@ def test_cgls_on_the_card_matches_the_cpu(cuda):
         op = CTOperator(GEO, ANGLES, mode=mode, memory=_tiny())
         got = cgls(proj, GEO, ANGLES, n_iter=6, op=op).cpu()
         torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
+
+
+# --------------------------------------------------------------------------
+# the voxel-driven backprojector, FDK and OS-SART
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("part", ["full", "slab"])
+@pytest.mark.parametrize("weight", ["fdk", "pmatched", "none"])
+@pytest.mark.parametrize("geo,n_angles", [
+    (GEO, 8), (ConeGeometry.nice(13), 7),
+    (ConeGeometry(n_voxel=(14, 20, 26), s_voxel=(200.0, 240.0, 260.0),
+                  n_detector=(18, 22), s_detector=(300.0, 380.0),
+                  off_origin=(6.0, -9.0, 7.0), off_detector=(11.0, -13.0)),
+     9)])
+def test_bp_voxel_matches_plain(cuda, geo, n_angles, weight, part):
+    nz = geo.n_voxel[0]
+    z0, planes = (0, nz) if part == "full" else (nz // 3, nz // 2)
+    a = torch.from_numpy(circular_angles(n_angles))
+    rng = np.random.default_rng(7)
+    y = torch.from_numpy(rng.standard_normal(
+        (n_angles,) + geo.n_detector).astype(np.float32))
+    got = bp_voxel_cuda(y.to(cuda), geo, a.to(cuda), weight, z0, planes)
+    assert got.shape == (planes,) + geo.n_voxel[1:]
+    torch.testing.assert_close(
+        got.cpu(), bp_voxel_plain(y, geo, a, weight, z0, planes),
+        rtol=RTOL, atol=ATOL)
+    assert torch.equal(got, bp_voxel_cuda(y.to(cuda), geo, a.to(cuda),
+                                          weight, z0, planes))
+
+
+def test_fdk_and_ossart_on_the_card_match_the_cpu(cuda):
+    from repro_torch.core import phantoms
+    proj = phantoms.sphere_projection_analytic(GEO, ANGLES)
+    cpu = CTOperator(GEO, ANGLES, device="cpu", backend="cuda")
+    kernels.reset_counters()
+    torch.testing.assert_close(fdk(proj, GEO, ANGLES).cpu(),
+                               fdk(proj, GEO, ANGLES, op=cpu),
+                               rtol=2e-3, atol=2e-3)
+    want = ossart(proj, GEO, ANGLES, n_iter=2, subset_size=3, op=cpu)
+    for mode in ("plain", "stream"):
+        op = CTOperator(GEO, ANGLES, mode=mode, memory=_tiny())
+        got = ossart(proj, GEO, ANGLES, n_iter=2, subset_size=3, op=op)
+        torch.testing.assert_close(got.cpu(), want, rtol=2e-3, atol=2e-3)
+    c = kernels.counters()
+    assert c["bp_voxel"]["launches"] > 0 and c["fp_ray"]["launches"] > 0
+    assert c["bp_matched"]["launches"] == 0
+    y = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (len(ANGLES),) + GEO.n_detector).astype(np.float32))
+    op = CTOperator(GEO, ANGLES, mode="stream", memory=_tiny())
+    t = op.At(y, weight="pmatched")
+    for depth in (0, 2):
+        assert torch.equal(stream_backward(y, GEO, ANGLES,
+                                           op.plan.with_prefetch(depth),
+                                           weight="pmatched"), t)

@@ -145,7 +145,8 @@ def test_wrappers_take_the_plain_version_on_cpu_tensors():
     bp_matched(p, tg, ang)
     c = kernels.counters()
     assert c == {"fp_ray": {"launches": 0, "plain_calls": 1},
-                 "bp_matched": {"launches": 0, "plain_calls": 1}}
+                 "bp_matched": {"launches": 0, "plain_calls": 1},
+                 "bp_voxel": {"launches": 0, "plain_calls": 0}}
     np.testing.assert_array_equal(
         p.numpy(), fp_ray_plain(torch.from_numpy(vol), tg, ang).numpy())
 
@@ -176,10 +177,14 @@ def test_build_locations_and_missing_nvcc(monkeypatch):
     assert "build/" in (root / ".gitignore").read_text().split()
     assert "sm_90a" in " ".join(build.NVCC_FLAGS)
     assert "--use_fast_math" not in build.NVCC_FLAGS
+    assert set(build.SOURCES) == set(build.HEADERS) == set(build.ARGTYPES)
     for name in build.SOURCES:
         path = build.library_path(name)
         assert path.parent == build.build_dir()
         assert path.name.startswith(f"lib{name}-")
+        for header in build.HEADERS[name]:
+            assert (build.CSRC / header).exists()
+    assert build.HEADERS["bp_voxel"] == ()
     monkeypatch.setattr(build.shutil, "which", lambda _: None)
     monkeypatch.setattr(build.os.path, "exists", lambda _: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):

@@ -189,8 +189,12 @@ def test_stream_rejects_a_multi_device_plan_and_fdk_weights():
     pl = plan(geo, len(ANGLES), 2, _tiny(geo, len(ANGLES)))
     with pytest.raises(ValueError, match="2 devices"):
         stream_forward(x, geo, ANGLES, pl, device=CPU)
-    with pytest.raises(NotImplementedError, match="FDK"):
+    with pytest.raises(ValueError, match="2 devices"):
         stream_backward(y, geo, ANGLES, pl, weight="fdk", device=CPU)
+    with pytest.raises(ValueError, match="unknown weight"):
+        stream_backward(y, geo, ANGLES, plan(geo, len(ANGLES), 1,
+                                             _tiny(geo, len(ANGLES))),
+                        weight="fbp", device=CPU)
 
 
 def test_streaming_emits_the_reference_spans():
@@ -270,9 +274,10 @@ def test_unported_paths_raise_and_name_the_later_slice():
         CTOperator(GEO, ANGLES, mode="dist", device=CPU)
     op = _op(GEO, ANGLES, "plain")
     y = np.ones((len(ANGLES),) + GEO.n_detector, np.float32)
-    for weight in ("fdk", "pmatched", "none"):
-        with pytest.raises(NotImplementedError, match="FDK"):
-            op.At(y, weight=weight)
+    for weight in ("fdk", "pmatched", "none"):      # ported: they run
+        assert op.At(y, weight=weight).shape == GEO.n_voxel
+    with pytest.raises(ValueError, match="unknown weight"):
+        op.At(y, weight="fbp")
     with pytest.raises(ValueError, match="unknown mode"):
         CTOperator(GEO, ANGLES, mode="nope", device=CPU)
 
