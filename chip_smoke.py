@@ -10,7 +10,10 @@ points, and prints the kernels' measurements.  The paths:
 * CGLS with the Joseph A (``fp_ray``) and its exact adjoint
   (``bp_matched``), in-core and streamed out-of-core;
 * FDK on the voxel-driven backprojector (``bp_voxel``), in-core;
-* OS-SART on ``fp_ray`` and ``bp_voxel``, in-core and streamed.
+* OS-SART on ``fp_ray`` and ``bp_voxel``, in-core and streamed;
+* ASD-POCS: OS-SART sweeps on ``fp_ray`` and ``bp_voxel`` and TV steepest
+  descent on the TV-gradient kernel (``tv_grad``), in-core and streamed;
+* FISTA-TV on ``fp_ray`` and ``bp_matched`` with the ROF prox, in-core.
 
 Each path is run with the kernel counters set to 0 just before it and read
 just after, and must have launched the kernels it runs (and called none of
@@ -50,13 +53,22 @@ OPS_PER_SAMPLE = 8
 #: in csrc/bp_voxel.cu: fv 3, floor and fraction 2, tap weights 5, the four
 #: taps 7, depth weight and accumulation 2
 OPS_PER_PAIR_VOXEL = 19
+#: fp32 operations per voxel in tv_grad's body, counted in csrc/tv_grad.cu:
+#: 15 at the voxel, 13 for each of the three backward terms (a sqrt and a
+#: division counted as one each)
+OPS_PER_VOXEL_TV = 54
 RTOL, ATOL = 2e-4, 5e-3    # kernel vs plain (tests/test_backend.py:23)
+TV_RTOL, TV_ATOL = 1e-5, 1e-5   # tv_grad vs plain (tests/test_kernels.py:70)
+SCALAR_RTOL = 1e-4         # ASD-POCS's dtvg / dp_first, streamed vs plain
+TV_STEPS = 20              # tv_grad launches per ASD-POCS iteration
 ADJ_TOL = 1e-4             # relative adjoint defect (tests/test_adjoint.py)
 CGLS_TOL = 2e-3            # algorithm iterates (tests/test_adjoint.py:199)
 SART_TOL = 2e-3            # streamed vs plain (tests/test_algorithms.py:77)
 #: the kernels each path runs (its counter check)
 PATH_KERNELS = {"cgls": ("fp_ray", "bp_matched"), "fdk": ("bp_voxel",),
-                "ossart": ("fp_ray", "bp_voxel")}
+                "ossart": ("fp_ray", "bp_voxel"),
+                "asd_pocs": ("fp_ray", "bp_voxel", "tv_grad"),
+                "fista": ("fp_ray", "bp_matched")}
 
 
 def log(msg: str) -> None:
@@ -446,6 +458,161 @@ def phase_ossart_stream(n: int, n_angles: int, ds, x_plain, device_bytes):
     return counts
 
 
+def phase_tv_grad_checks(n: int):
+    """tv_grad against its plain version on the card: an N^3 and an odd
+    volume, volumes of 1 and 2 planes; seeded random values and the
+    piecewise-constant Shepp-Logan phantom (zero differences, so m = eps);
+    repeat launches bit-identical."""
+    import torch
+    from repro_torch.core import phantoms
+    from repro_torch.core.geometry import ConeGeometry
+    from repro_torch.kernels.tv_grad import tv_grad_cuda, tv_grad_plain
+    shapes = ((n, n, n), (61, 37, 45), (1, 64, 64), (2, 64, 64))
+    log(f"== tv_grad checks at {', '.join(str(s) for s in shapes)}")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    same = 0
+    for shape in shapes:
+        vols = {"random": torch.randn(shape, generator=gen, device="cuda")}
+        if min(shape) > 2:
+            vols["shepp-logan"] = torch.from_numpy(phantoms.shepp_logan(
+                ConeGeometry.nice(n).with_voxels(shape))).cuda()
+        for kind, v in vols.items():
+            tag = f"tv_grad {shape} {kind}"
+            got = tv_grad_cuda(v)
+            want = tv_grad_plain(v)
+            check_close(tag, got, want, rtol=TV_RTOL, atol=TV_ATOL)
+            same += int(torch.equal(got, want))
+            if not torch.equal(got, tv_grad_cuda(v)):
+                raise AssertionError(f"{tag}: repeat launch differs")
+    torch.cuda.synchronize()
+    log(f"  repeat launches bit-identical; {same} of the cases equal to the "
+        "plain version bit for bit")
+
+
+def phase_asd_pocs_plain(n: int, n_angles: int, ds, iters: int):
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.geometry import ConeGeometry
+    from repro_torch.launch.recon import reconstruct
+    log(f"== ASD-POCS, plain mode: N={n}, {n_angles} angles, the reference "
+        f"driver's subsets of 20 and {TV_STEPS} TV steps, {iters} "
+        "iterations")
+    geo = ConeGeometry.nice(n)
+    per_iter = []
+    first = {}
+
+    def cb(it, st):
+        torch.cuda.synchronize()
+        per_iter.append({k: v["launches"]
+                         for k, v in kernels.counters().items()})
+        if it == 0:
+            first.update(x=st.x.cpu(), dtvg=st.dtvg, dp_first=st.dp_first)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counters()
+    t0 = time.perf_counter()
+    res = reconstruct("asd_pocs", n=n, n_angles=n_angles, iters=iters,
+                      mode="plain", device="cuda", dataset=ds, callback=cb)
+    wall = time.perf_counter() - t0
+    counts = kernels.counters()
+    per = launches_between(per_iter[0], per_iter[1])
+    log(f"  seconds per iteration {[round(s, 3) for s in res.seconds]} "
+        f"(the first builds the {len(res.op.subset_indices(20))} subsets' "
+        f"factors; {wall:.2f} s in all), rel_err {res.rel_err:.4f}, peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"  after iteration 1: dtvg {first['dtvg']!r}, dp_first "
+        f"{first['dp_first']!r}")
+    log(f"  counters {counts}; launches per ASD-POCS iteration {per}")
+    check_image(res, geo)
+    check_counts(counts, "asd_pocs", "plain ASD-POCS")
+    if per["tv_grad"] != TV_STEPS:
+        raise AssertionError(f"{per['tv_grad']} tv_grad launches in an "
+                             f"iteration, expected {TV_STEPS}")
+    return first, counts, per
+
+
+def phase_asd_pocs_stream(n: int, n_angles: int, ds, first, device_bytes):
+    import torch
+    from repro_torch import kernels, obs
+    from repro_torch.core.geometry import ConeGeometry
+    from repro_torch.launch.recon import reconstruct
+    log(f"== ASD-POCS, streamed: N={n}, {n_angles} angles, device budget "
+        f"{device_bytes / 2**20:.0f} MiB, 1 iteration")
+    got = {}
+    tracer = obs.Tracer(enabled=True)
+    prev = obs.set_tracer(tracer)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counters()
+    try:
+        t0 = time.perf_counter()
+        res = reconstruct(
+            "asd_pocs", n=n, n_angles=n_angles, iters=1, mode="stream",
+            device_bytes=device_bytes, device="cuda", dataset=ds,
+            callback=lambda it, st: got.update(dtvg=st.dtvg,
+                                               dp_first=st.dp_first))
+        wall = time.perf_counter() - t0
+    finally:
+        obs.set_tracer(prev)
+    counts = kernels.counters()
+    log(f"  seconds per iteration {[round(s, 3) for s in res.seconds]}, "
+        f"rel_err {res.rel_err:.4f}, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; counters "
+        f"{counts}")
+    phases = tracer.phase_seconds()
+    log(f"  span seconds over the whole run ({wall:.2f} s wall, "
+        f"1 iteration with the lazy init): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in sorted(phases.items()))
+        + f", outside spans {wall - sum(phases.values()):.3f}")
+    check_counts(counts, "asd_pocs", "streamed ASD-POCS")
+    if counts["tv_grad"]["launches"] != TV_STEPS:
+        raise AssertionError(f"tv_grad launched {counts['tv_grad']} times")
+    check_image(res, ConeGeometry.nice(n))
+    check_close("stream ASD-POCS x1 vs plain ASD-POCS x1", res.rec,
+                first["x"], rtol=SART_TOL, atol=SART_TOL)
+    for key in ("dtvg", "dp_first"):
+        a, b = got[key], first[key]
+        rel = abs(a - b) / max(abs(a), abs(b))
+        log(f"  {key}: streamed {a!r}, plain {b!r}, relative difference "
+            f"{rel:.3g}")
+        if not rel <= SCALAR_RTOL:
+            raise AssertionError(f"{key} differs by {rel:.3g} > "
+                                 f"{SCALAR_RTOL}")
+    return counts
+
+
+def phase_fista_plain(n: int, n_angles: int, ds, iters: int):
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.geometry import ConeGeometry
+    from repro_torch.launch.recon import reconstruct
+    log(f"== FISTA-TV, plain mode: N={n}, {n_angles} angles, L from 6 power "
+        f"iterations, 20 ROF steps, {iters} iterations")
+    geo = ConeGeometry.nice(n)
+    per_iter = []
+    seen = {}
+
+    def cb(it, st):
+        torch.cuda.synchronize()
+        per_iter.append({k: v["launches"]
+                         for k, v in kernels.counters().items()})
+        seen["L"] = st.L
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counters()
+    t0 = time.perf_counter()
+    res = reconstruct("fista", n=n, n_angles=n_angles, iters=iters,
+                      mode="plain", device="cuda", dataset=ds, callback=cb)
+    wall = time.perf_counter() - t0
+    counts = kernels.counters()
+    per = launches_between(per_iter[0], per_iter[1])
+    log(f"  seconds per iteration {[round(s, 3) for s in res.seconds]}, "
+        f"init (power iteration) {wall - sum(res.seconds):.2f} s, L "
+        f"{seen['L']!r}, rel_err {res.rel_err:.4f}, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"  counters {counts}; launches per FISTA iteration {per}")
+    check_image(res, geo)
+    check_counts(counts, "fista", "plain FISTA")
+    return counts, per
+
+
 def _row(name, source, replaces, launches, err, ms, plain_ms, t_ops,
          t_bytes):
     return {"name": name, "route": "cuda", "source": source,
@@ -456,13 +623,13 @@ def _row(name, source, replaces, launches, err, ms, plain_ms, t_ops,
             "library_ms": None}
 
 
-def _time_kernel(name, kern, plain):
+def _time_kernel(name, kern, plain, rtol=RTOL, atol=ATOL):
     """(CUDA-event median of 5, plain ms once, max |err|) of one kernel."""
     import torch
     ms = cuda_ms(kern, reps=5)
     plain_ms, want = once_ms(plain)
     got = kern()
-    err = check_close(f"{name} at main shapes", got, want)
+    err = check_close(f"{name} at main shapes", got, want, rtol, atol)
     del want, got
     torch.cuda.empty_cache()
     return ms, plain_ms, err
@@ -473,13 +640,15 @@ def phase_times(n: int, n_angles: int, ds, launches, per_iter, smi):
     version once, the error between them, and the bound.  The Joseph pair
     takes the whole volume and one dominance group of angles (a CGLS
     launch), bp_voxel the whole volume and every angle with the pmatched
-    weight (FDK's launch, with OS-SART's weight)."""
+    weight (FDK's launch, with OS-SART's weight), tv_grad a whole volume
+    of seeded random values (an ASD-POCS launch)."""
     import torch
     from repro_torch.core.geometry import ConeGeometry, dominant_axis_mask
     from repro_torch.kernels.bp_matched import (bp_matched_cuda,
                                                 bp_matched_plain)
     from repro_torch.kernels.bp_voxel import bp_voxel_cuda, bp_voxel_plain
     from repro_torch.kernels.fp_ray import fp_ray_cuda, fp_ray_plain
+    from repro_torch.kernels.tv_grad import tv_grad_cuda, tv_grad_plain
     log(f"== kernel times at the main path's shapes (card: {smi})")
     geo = ConeGeometry.nice(n)
     vol, angles, proj = ds
@@ -524,16 +693,33 @@ def phase_times(n: int, n_angles: int, ds, launches, per_iter, smi):
     rows.append(_row("bp_voxel", "src/repro_torch/kernels/csrc/bp_voxel.cu",
                      "src/repro/kernels/bp_voxel.py:32", launches["bp_voxel"],
                      err, ms, plain_ms, v_ops, v_bytes))
-    log("  library: none for any of the three. No single PyTorch call "
+    del p_all
+    torch.cuda.empty_cache()
+    # tv_grad over the whole volume: each voxel read once, written once
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(geo.n_voxel, generator=gen, device="cuda")
+    ms, plain_ms, err = _time_kernel(
+        "tv_grad", lambda: tv_grad_cuda(x), lambda: tv_grad_plain(x),
+        TV_RTOL, TV_ATOL)
+    rows.append(_row("tv_grad", "src/repro_torch/kernels/csrc/tv_grad.cu",
+                     "src/repro/kernels/tv_grad.py:35", launches["tv_grad"],
+                     err, ms, plain_ms,
+                     OPS_PER_VOXEL_TV * x.numel() / PEAK_FP32,
+                     2 * vol_bytes / PEAK_BYTES))
+    del x
+    torch.cuda.empty_cache()
+    log("  library: none for any of the four. No single PyTorch call "
         "projects along rays or transposes that gather; for bp_voxel, "
         "grid_sample would need an A*Nz*Ny*Nx intermediate "
-        f"({pairs * 4 / 1e9:.0f} GB here)")
+        f"({pairs * 4 / 1e9:.0f} GB here); the TV gradient's closed form "
+        "has no single call (autograd of tv_value is many ops)")
     for row in rows:
         log(f"  {row['name']}: {row['ms']:.3f} ms (median of 5), plain "
             f"{row['plain_ms']:.1f} ms, bound {row['bound_ms']:.3f} ms "
             f"({row['bound_by']}), launches per iteration "
             + ", ".join(f"{path} {per[row['name']]}"
-                        for path, per in per_iter.items())
+                        for path, per in per_iter.items()
+                        if per[row['name']])
             + f", {row['launches']} on the main paths")
     return rows
 
@@ -553,10 +739,12 @@ def main(argv=None) -> int:
     if args.quick:
         phase_kernel_checks(64, 48)
         phase_bp_voxel_checks(64, 48)
+        phase_tv_grad_checks(64)
         log(f"quick run passed in {time.perf_counter() - t_start:.0f}s")
         return 0
     phase_kernel_checks(128, 96)
     phase_bp_voxel_checks(128, 96)
+    phase_tv_grad_checks(128)
     n, n_angles = 512, 512
     ds, x2, c_cgls, per_cgls = phase_main_plain(n, n_angles, iters=3)
     c_cgls_stream = phase_main_stream(n, n_angles, ds, x2,
@@ -568,10 +756,20 @@ def main(argv=None) -> int:
                                         device_bytes=256 << 20)
     del x_sart
     torch.cuda.empty_cache()
-    runs = (c_cgls, c_cgls_stream, c_fdk, c_sart, c_sart_stream)
+    first, c_asd, per_asd = phase_asd_pocs_plain(n, n_angles, ds, iters=2)
+    torch.cuda.empty_cache()
+    c_asd_stream = phase_asd_pocs_stream(n, n_angles, ds, first,
+                                         device_bytes=256 << 20)
+    del first
+    torch.cuda.empty_cache()
+    c_fista, per_fista = phase_fista_plain(n, n_angles, ds, iters=2)
+    torch.cuda.empty_cache()
+    runs = (c_cgls, c_cgls_stream, c_fdk, c_sart, c_sart_stream, c_asd,
+            c_asd_stream, c_fista)
     launches = {k: sum(c[k]["launches"] for c in runs) for k in c_cgls}
     rows = phase_times(n, n_angles, ds, launches,
-                       {"CGLS": per_cgls, "OS-SART": per_sart}, smi)
+                       {"CGLS": per_cgls, "OS-SART": per_sart,
+                        "ASD-POCS": per_asd, "FISTA": per_fista}, smi)
     log(f"total {time.perf_counter() - t_start:.0f}s")
     print(smi)
     print(json.dumps({"kernels": rows}))

@@ -21,7 +21,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ..device import DeviceLike, as_f32
+from ..device import DeviceLike, as_f32, norm
 from ..operator import CTOperator
 
 
@@ -85,5 +85,5 @@ def cgls(proj, geo, angles, n_iter: int = 15,
     for it in range(n_iter):
         st = cgls_step(st)
         if callback is not None:
-            callback(it, st.x, float(torch.linalg.norm(st.r)))
+            callback(it, st.x, float(norm(st.r)))
     return cgls_finalize(st)

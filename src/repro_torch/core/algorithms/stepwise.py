@@ -11,8 +11,8 @@ everything else is rebuilt by ``init``.  :func:`restore_state` also takes
 the numpy dict the reference's ``checkpoint_state`` writes, which is how a
 run carries over from the JAX package.
 
-Ported: CGLS, OS-SART / SIRT / SART and FDK; FISTA and ASD-POCS arrive
-with a later slice (ROADMAP Queue A 9).
+Every algorithm of the reference is registered: CGLS, OS-SART / SIRT /
+SART, FISTA-TV (also as ``fista_tv``), ASD-POCS and FDK.
 """
 
 from __future__ import annotations
@@ -24,8 +24,10 @@ import numpy as np
 import torch
 
 from ..operator import CTOperator
+from .asd_pocs import asd_pocs_finalize, asd_pocs_init, asd_pocs_step
 from .cgls import cgls_finalize, cgls_init, cgls_step
 from .fdk import fdk
+from .fista import fista_tv_finalize, fista_tv_init, fista_tv_step
 from .sart import ossart_finalize, ossart_init, ossart_step
 
 
@@ -104,23 +106,25 @@ REGISTRY: Dict[str, StepwiseAlgorithm] = {
         "cgls", cgls_init, cgls_step, cgls_finalize,
         ckpt_fields=("x", "r", "p", "gamma", "it"),
         default_bp_weight="matched"),
+    "fista": StepwiseAlgorithm(
+        "fista", fista_tv_init, fista_tv_step, fista_tv_finalize,
+        ckpt_fields=("x", "y", "t", "L", "it"),
+        default_bp_weight="matched", resume_params=("L",)),
+    "asd_pocs": StepwiseAlgorithm(
+        "asd_pocs", asd_pocs_init, asd_pocs_step, asd_pocs_finalize,
+        ckpt_fields=("x", "lmbda", "dtvg", "dp_first", "it"),
+        resume_params=("lmbda",)),
     "fdk": StepwiseAlgorithm(
         "fdk", fdk_init, fdk_step, fdk_finalize,
         ckpt_fields=("x", "it"), iterative=False),
 }
-
-#: the reference's catalogue, ported by a later slice
-NOT_YET_PORTED = ("fista", "fista_tv", "asd_pocs")
+REGISTRY["fista_tv"] = REGISTRY["fista"]
 
 
 def get_algorithm(name: str) -> StepwiseAlgorithm:
     try:
         return REGISTRY[name]
     except KeyError:
-        if name in NOT_YET_PORTED:
-            raise ValueError(
-                f"algorithm {name!r} is not ported yet (ROADMAP Queue A "
-                f"9); ported: {sorted(REGISTRY)}") from None
         raise ValueError(f"unknown algorithm {name!r}; "
                          f"known: {sorted(REGISTRY)}") from None
 

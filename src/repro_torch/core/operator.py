@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from .backend import get_backend, resolve as resolve_backend
-from .device import DeviceLike, as_f32, resolve_device
+from .device import DeviceLike, as_f32, norm, resolve_device
 from .geometry import ConeGeometry, dominant_axis_mask
 from .plan import ExecutionPlan, plan as plan_execution
 from .splitting import MemoryModel
@@ -161,11 +161,11 @@ class CTOperator:
         dev = self.data_device
         gen = torch.Generator(device=dev).manual_seed(seed)
         x = torch.randn(self.geo.n_voxel, generator=gen, device=dev)
-        x = x / torch.linalg.norm(x)
+        x = x / norm(x)
         lam = 1.0
         for _ in range(n_iter):
             y = self.At(self.A(x), weight="matched")
-            lam = float(torch.linalg.norm(y))
+            lam = float(norm(y))
             x = y / (lam + 1e-30)
         return lam
 

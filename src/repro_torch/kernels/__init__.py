@@ -4,6 +4,8 @@
 * :mod:`.bp_matched` — its exact adjoint A^T (``csrc/bp_matched.cu``);
 * :mod:`.bp_voxel` — the voxel-driven backprojector of FDK and the SART
   family (``csrc/bp_voxel.cu``);
+* :mod:`.tv_grad` — the gradient of the smoothed TV objective, ASD-POCS's
+  regulariser (``csrc/tv_grad.cu``);
 * :mod:`.build` — ``nvcc`` at first use, ``ctypes`` loading.
 
 Importing this package builds and loads nothing.
@@ -16,11 +18,12 @@ from typing import Dict
 from .bp_matched import bp_matched_cuda, bp_matched_plain
 from .bp_voxel import bp_voxel_cuda, bp_voxel_plain
 from .fp_ray import fp_ray_cuda, fp_ray_plain
+from .tv_grad import tv_grad_cuda, tv_grad_plain
 
 _LAUNCHES = {"fp_ray": fp_ray_cuda, "bp_matched": bp_matched_cuda,
-             "bp_voxel": bp_voxel_cuda}
+             "bp_voxel": bp_voxel_cuda, "tv_grad": tv_grad_cuda}
 _PLAIN = {"fp_ray": fp_ray_plain, "bp_matched": bp_matched_plain,
-          "bp_voxel": bp_voxel_plain}
+          "bp_voxel": bp_voxel_plain, "tv_grad": tv_grad_plain}
 
 
 def reset_counters() -> None:

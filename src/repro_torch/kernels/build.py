@@ -33,11 +33,11 @@ from typing import Callable, Dict, Iterable, Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 #: kernel name -> its source under csrc/
 SOURCES = {"fp_ray": "fp_ray.cu", "bp_matched": "bp_matched.cu",
-           "bp_voxel": "bp_voxel.cu"}
+           "bp_voxel": "bp_voxel.cu", "tv_grad": "tv_grad.cu"}
 #: kernel name -> the headers under csrc/ its source includes
 HEADERS = {"fp_ray": ("joseph_common.cuh",),
            "bp_matched": ("joseph_common.cuh",),
-           "bp_voxel": ()}
+           "bp_voxel": (), "tv_grad": ()}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -134,8 +134,12 @@ JOSEPH_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
 VOXEL_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
                   + [ctypes.c_float] * 14
                   + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+#: ctypes signature of csrc/tv_grad.cu's entry: vol, out; nz ny nx;
+#: eps^2; device, stream
+TV_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_float]
+               + [ctypes.c_int, ctypes.c_void_p])
 ARGTYPES = {"fp_ray": JOSEPH_ARGTYPES, "bp_matched": JOSEPH_ARGTYPES,
-            "bp_voxel": VOXEL_ARGTYPES}
+            "bp_voxel": VOXEL_ARGTYPES, "tv_grad": TV_ARGTYPES}
 
 
 def entry(name: str):

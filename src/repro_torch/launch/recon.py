@@ -17,6 +17,12 @@ Usage::
         --angles 96 --iters 2
     PYTHONPATH=src python -m repro_torch.launch.recon --alg fdk --n 64 \
         --angles 96
+    # the TV-regularised pair, with the reference's defaults (ASD-POCS:
+    # subsets of 20, 20 TV steps; FISTA: L by power iteration, 20 ROF steps):
+    PYTHONPATH=src python -m repro_torch.launch.recon --alg asd_pocs \
+        --n 64 --angles 96 --iters 2
+    PYTHONPATH=src python -m repro_torch.launch.recon --alg fista --n 64 \
+        --angles 96 --iters 2
     # the plain-PyTorch versions on the CPU:
     ... --device cpu
 
@@ -33,7 +39,7 @@ from typing import Callable, List, Optional
 import torch
 
 from ..core.algorithms.stepwise import get_algorithm
-from ..core.device import DeviceLike, resolve_device
+from ..core.device import DeviceLike, norm, resolve_device
 from ..core.geometry import ConeGeometry
 from ..core.operator import CTOperator
 from ..core.splitting import MemoryModel
@@ -54,7 +60,8 @@ class ReconResult:
 
 
 def _job_params(algname: str, n_angles: int) -> dict:
-    """Algorithm parameters the driver sets (as the reference's)."""
+    """Algorithm parameters the driver sets (as the reference's: the
+    others, FISTA and ASD-POCS included, run with their defaults)."""
     if algname == "ossart":
         return {"subset_size": max(n_angles // 8, 1)}
     return {}
@@ -82,13 +89,13 @@ def reconstruct(algname: str = "cgls", n: int = 64, n_angles: int = 96,
     t_start = time.perf_counter()
     st = alg.init(proj, geo, angles, op=op, **_job_params(algname, n_angles))
     has_r = hasattr(st, "r")
-    residuals = [float(torch.linalg.norm(st.r))] if has_r else []
+    residuals = [float(norm(st.r))] if has_r else []
     seconds = []
     for it in range(iters if alg.iterative else 1):
         t0 = time.perf_counter()
         st = alg.step(st)
         if has_r:
-            residuals.append(float(torch.linalg.norm(st.r)))   # syncs
+            residuals.append(float(norm(st.r)))   # syncs
         elif dev.type == "cuda":
             torch.cuda.synchronize(dev)
         seconds.append(time.perf_counter() - t0)
@@ -96,7 +103,7 @@ def reconstruct(algname: str = "cgls", n: int = 64, n_angles: int = 96,
             callback(it, st)
     rec = alg.finalize(st)
     vol_d = vol.to(rec.device)
-    rel = float(torch.linalg.norm(rec - vol_d) / torch.linalg.norm(vol_d))
+    rel = float(norm(rec - vol_d) / norm(vol_d))
     if verbose:
         print(f"[recon] {algname} N={n} angles={n_angles} "
               f"iters={len(seconds)} "
@@ -109,7 +116,8 @@ def reconstruct(algname: str = "cgls", n: int = 64, n_angles: int = 96,
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--alg", default="cgls",
-                    choices=("cgls", "ossart", "sirt", "sart", "fdk"))
+                    choices=("cgls", "ossart", "sirt", "sart", "fdk",
+                             "fista", "asd_pocs"))
     ap.add_argument("--n", type=int, default=64)
     ap.add_argument("--angles", type=int, default=96)
     ap.add_argument("--iters", type=int, default=10)

@@ -113,12 +113,19 @@ def test_resume_from_a_jax_checkpoint(proj, jax_x6, mode):
 
 
 def test_registry_points_to_the_roadmap():
-    assert get_algorithm("cgls").default_bp_weight == "matched"
-    for name in ("ossart", "sirt", "sart", "fdk"):
+    """Every algorithm of the reference's catalogue is registered, with the
+    reference's bp weight (the Krylov and FISTA steps need the exact
+    adjoint), checkpoint fields and resume parameters."""
+    for name in ("cgls", "fista", "fista_tv"):
+        assert get_algorithm(name).default_bp_weight == "matched"
+    for name in ("ossart", "sirt", "sart", "fdk", "asd_pocs"):
         assert get_algorithm(name).default_bp_weight == "pmatched"
-    for name in ("fista", "fista_tv", "asd_pocs"):
-        with pytest.raises(ValueError, match="ROADMAP"):
-            get_algorithm(name)
+    assert get_algorithm("fista_tv") is get_algorithm("fista")
+    for name, jalg in jax_stepwise.REGISTRY.items():
+        alg = get_algorithm(name)
+        assert (alg.ckpt_fields, alg.default_bp_weight, alg.resume_params,
+                alg.iterative) == (jalg.ckpt_fields, jalg.default_bp_weight,
+                                   jalg.resume_params, jalg.iterative)
     with pytest.raises(ValueError, match="unknown algorithm"):
         get_algorithm("nope")
 
