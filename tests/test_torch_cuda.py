@@ -1,6 +1,6 @@
 """The port on the card: each CUDA kernel against its plain version, and
-the operator, streaming executor, CGLS, FDK, OS-SART, ASD-POCS and
-FISTA-TV running through the kernels.
+the operator, streaming executor, CGLS, FDK and OS-SART running through
+the kernels (the TV path's are in tests/test_torch_cuda_tv.py).
 
 Every test here needs a CUDA device and ``nvcc`` (the kernels build at
 first use) and skips without a device.  The file imports nothing of JAX,
@@ -9,8 +9,7 @@ so it runs where the port runs:
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q
 
 Bands: kernel vs plain rtol 2e-4, atol 5e-3 (tests/test_backend.py:23);
-tv_grad vs plain rtol 1e-5, atol 1e-5 (tests/test_kernels.py:70); adjoint
-defect <= 1e-4; algorithm iterates 2e-3 (tests/test_adjoint.py:199).
+adjoint defect <= 1e-4; algorithm iterates 2e-3 (tests/test_adjoint.py:199).
 """
 
 import math
@@ -20,7 +19,7 @@ import pytest
 import torch
 
 from repro_torch import kernels
-from repro_torch.core.algorithms import asd_pocs, cgls, fdk, fista_tv, ossart
+from repro_torch.core.algorithms import cgls, fdk, ossart
 from repro_torch.core.geometry import (ConeGeometry, circular_angles,
                                        dominant_axis_mask)
 from repro_torch.core.operator import CTOperator
@@ -29,7 +28,6 @@ from repro_torch.core.streaming import stream_backward, stream_forward
 from repro_torch.kernels.bp_matched import bp_matched_cuda, bp_matched_plain
 from repro_torch.kernels.bp_voxel import bp_voxel_cuda, bp_voxel_plain
 from repro_torch.kernels.fp_ray import fp_ray_cuda, fp_ray_plain
-from repro_torch.kernels.tv_grad import tv_grad_cuda, tv_grad_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -209,51 +207,3 @@ def test_fdk_and_ossart_on_the_card_match_the_cpu(cuda):
         assert torch.equal(stream_backward(y, GEO, ANGLES,
                                            op.plan.with_prefetch(depth),
                                            weight="pmatched"), t)
-
-
-# --------------------------------------------------------------------------
-# the TV gradient, ASD-POCS and FISTA-TV
-# --------------------------------------------------------------------------
-
-@pytest.mark.parametrize("shape", [(20, 25, 25), (61, 37, 45), (1, 64, 64),
-                                   (2, 64, 64), (5, 1, 7), (3, 2, 1)])
-def test_tv_grad_matches_plain(cuda, shape):
-    """Random volumes and the piecewise-constant Shepp-Logan phantom (zero
-    differences: m = eps), any shape, axes of size 1 and 2 included;
-    repeat launches bit-identical."""
-    from repro_torch.core import phantoms
-    rng = np.random.default_rng(9)
-    vols = [rng.standard_normal(shape).astype(np.float32)]
-    if min(shape) > 2:
-        vols.append(phantoms.shepp_logan(
-            ConeGeometry.nice(16).with_voxels(shape)))
-    kernels.reset_counters()
-    for v in vols:
-        t = torch.from_numpy(v)
-        got = tv_grad_cuda(t.to(cuda))
-        torch.testing.assert_close(got.cpu(), tv_grad_plain(t), rtol=1e-5,
-                                   atol=1e-5)
-        assert torch.equal(got, tv_grad_cuda(t.to(cuda)))
-    assert kernels.counters()["tv_grad"]["launches"] == 2 * len(vols)
-
-
-def test_asd_pocs_and_fista_on_the_card_match_the_cpu(cuda):
-    from repro_torch.core import phantoms
-    proj = phantoms.sphere_projection_analytic(GEO, ANGLES)
-    cpu = CTOperator(GEO, ANGLES, device="cpu", backend="cuda")
-    want_asd = asd_pocs(proj, GEO, ANGLES, n_iter=2, subset_size=3, op=cpu)
-    want_fista = fista_tv(proj, GEO, ANGLES, n_iter=2, L=3e4, op=cpu)
-    kernels.reset_counters()
-    for mode in ("plain", "stream"):
-        op = CTOperator(GEO, ANGLES, mode=mode, memory=_tiny())
-        got = asd_pocs(proj, GEO, ANGLES, n_iter=2, subset_size=3, op=op)
-        assert got.device == op.data_device
-        torch.testing.assert_close(got.cpu(), want_asd, rtol=2e-3, atol=2e-3)
-        got = fista_tv(proj, GEO, ANGLES, n_iter=2, L=3e4, op=op)
-        torch.testing.assert_close(got.cpu(), want_fista, rtol=2e-3,
-                                   atol=2e-3)
-    c = kernels.counters()
-    assert c["tv_grad"]["launches"] == 2 * 2 * 20
-    for name in ("fp_ray", "bp_matched", "bp_voxel"):
-        assert c[name]["launches"] > 0
-    assert all(v["plain_calls"] == 0 for v in c.values())
