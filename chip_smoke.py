@@ -4,8 +4,8 @@
 Builds the port's CUDA kernels from the sources in this checkout, holds
 each against its plain-PyTorch version (parity, the adjoint identity of
 the Joseph pair, bit-identical repeat launches), drives the port's paths
-at N=512 (512^3 volume, 512^2 detector, 512 angles) through its own entry
-points, and prints the kernels' measurements.  The paths:
+through its own entry points, and prints the kernels' measurements.  The
+CT paths run at N=512 (512^3 volume, 512^2 detector, 512 angles):
 
 * CGLS with the Joseph A (``fp_ray``) and its exact adjoint
   (``bp_matched``), in-core and streamed out-of-core;
@@ -15,12 +15,22 @@ points, and prints the kernels' measurements.  The paths:
   descent on the TV-gradient kernel (``tv_grad``), in-core and streamed;
 * FISTA-TV on ``fp_ray`` and ``bp_matched`` with the ROF prox, in-core.
 
+The LM serving path runs gemma2-9b at full width and depth (42 layers,
+bf16, seeded random weights made on the card):
+
+* prefill of 2 prompts of 8192 tokens through the FlashAttention kernel
+  (``flash_attention``), 42 launches per prefill;
+* 32 decode steps on a 32768-slot ring cache (plain PyTorch ops);
+* a torch.profiler window over one prefill and three decode steps (device
+  time by kernel, device idle share);
+* decode-equals-prefill in float32 at full width and 4 layers.
+
 Each path is run with the kernel counters set to 0 just before it and read
 just after, and must have launched the kernels it runs (and called none of
 their plain versions).
 
     python3 chip_smoke.py            # the whole run (one GPU)
-    python3 chip_smoke.py --quick    # build and kernel checks at N=64 only
+    python3 chip_smoke.py --quick    # build and kernel checks only
 
 Every phase raises on failure, so the exit code is nonzero unless all of
 them pass.  Without a CUDA device, or without the repository around it,
@@ -46,6 +56,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # the card's published peaks (H100 SXM data sheet; full 700 W limit)
 PEAK_FP32 = 67e12          # FLOP/s, fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # bytes/s, HBM3
+PEAK_BF16 = 989e12         # FLOP/s, dense bf16 on the tensor cores
 #: fp32 operations per ray-plane sample (per voxel-angle pair in A^T): the
 #: two y blends, the z blend and the accumulation
 OPS_PER_SAMPLE = 8
@@ -63,12 +74,24 @@ SCALAR_RTOL = 1e-4         # ASD-POCS's dtvg / dp_first, streamed vs plain
 TV_STEPS = 20              # tv_grad launches per ASD-POCS iteration
 ADJ_TOL = 1e-4             # relative adjoint defect (tests/test_adjoint.py)
 CGLS_TOL = 2e-3            # algorithm iterates (tests/test_adjoint.py:199)
+#: flash_attention vs plain, by type.  float32 as tests/test_kernels.py:84.
+#: In bfloat16 both compute in float32 from the same inputs and round once,
+#: so they differ by at most one unit in the last place (2^-8 to 2^-7 of
+#: the value): rtol 1e-2.  The reference's 5e-2 (tests/test_kernels.py:98)
+#: is above a typical output at the main shape (|out| ~ 0.02), where it
+#: would not tell a kernel that drops the window from a right one.
+FLASH_TOL = {"float32": (2e-4, 2e-4), "bfloat16": (1e-2, 1e-4)}
+#: scale of the checks' random q: scores of std 4, so the soft-cap of 50
+#: changes the softmax (at std 1 it moves no output out of the band)
+FLASH_Q_SCALE = 4.0
+LM_RTOL, LM_ATOL = 1e-3, 1e-4  # decode vs forward (tests/test_models.py:86)
 SART_TOL = 2e-3            # streamed vs plain (tests/test_algorithms.py:77)
 #: the kernels each path runs (its counter check)
 PATH_KERNELS = {"cgls": ("fp_ray", "bp_matched"), "fdk": ("bp_voxel",),
                 "ossart": ("fp_ray", "bp_voxel"),
                 "asd_pocs": ("fp_ray", "bp_voxel", "tv_grad"),
-                "fista": ("fp_ray", "bp_matched")}
+                "fista": ("fp_ray", "bp_matched"),
+                "prefill": ("flash_attention",)}
 
 
 def log(msg: str) -> None:
@@ -82,8 +105,8 @@ def run(cmd) -> str:
 
 def check_close(name, got, want, rtol=RTOL, atol=ATOL) -> float:
     import torch
-    err = (got - want).abs()
-    bad = err > atol + rtol * want.abs()
+    err = (got.float() - want.float()).abs()
+    bad = err > atol + rtol * want.float().abs()
     max_err = float(err.max())
     if bool(bad.any()):
         raise AssertionError(
@@ -91,6 +114,22 @@ def check_close(name, got, want, rtol=RTOL, atol=ATOL) -> float:
             f"rtol={rtol} atol={atol} (max |err| {max_err:.3g})")
     log(f"  {name}: max |err| {max_err:.3g} (rtol {rtol}, atol {atol})")
     return max_err
+
+
+def outside_band(got, want, rtol, atol) -> int:
+    """How many elements of ``got`` lie outside the band around ``want``."""
+    err = (got.float() - want.float()).abs()
+    return int((err > atol + rtol * want.float().abs()).sum())
+
+
+def check_separates(name, want, wrong, rtol, atol, what) -> None:
+    """The band around ``want`` excludes ``wrong``, the plain version with
+    one feature dropped: a kernel that dropped it would fail its check."""
+    n = outside_band(wrong, want, rtol, atol)
+    log(f"  {name}: the plain version with {what} puts {n} of "
+        f"{want.numel()} elements outside the band")
+    if n == 0:
+        raise AssertionError(f"{name}: the band does not tell {what} apart")
 
 
 def adjoint_defect(fx, y, x, aty) -> float:
@@ -613,6 +652,422 @@ def phase_fista_plain(n: int, n_angles: int, ds, iters: int):
     return counts, per
 
 
+# --------------------------------------------------------------------------
+# the LM serving path (gemma2-9b)
+# --------------------------------------------------------------------------
+
+def phase_flash_checks():
+    """flash_attention against its plain version on the card: S 1000 (no
+    tile divides it), head dims 64, 128 and 256, Hq/Hkv 1, 2 and 8, causal
+    and not, windows 64 and 4096, soft-cap none and 50, float32 and
+    bfloat16; repeat launches bit-identical.  At D 256, Hq/Hkv 8 in
+    bfloat16, the plain version with the window, the causal mask or the
+    cap dropped must fall outside the band."""
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_plain)
+    s = 1000
+    heads = ((4, 4), (8, 4), (16, 2))
+    masks = ((True, None, None), (False, None, None), (True, 64, 50.0),
+             (False, 64, None), (True, 4096, 50.0), (False, 4096, 50.0))
+    log(f"== flash_attention checks at S={s}, D 64/128/256, Hq/Hkv 1/2/8, "
+        f"{len(masks)} mask and cap settings, float32 and bfloat16")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        rtol, atol = FLASH_TOL[str(dtype).split(".")[1]]
+        for d in (64, 128, 256):
+            for hq, hkv in heads:
+                q, k, v = ((torch.randn((2, h, s, d), generator=gen,
+                                        device="cuda") * c).to(dtype)
+                           for h, c in ((hq, FLASH_Q_SCALE), (hkv, 1.0),
+                                        (hkv, 1.0)))
+                for causal, window, cap in masks:
+                    got = flash_attention_cuda(q, k, v, causal, window, cap)
+                    want = flash_attention_plain(q, k, v, causal, window, cap)
+                    err = (got.float() - want.float()).abs()
+                    tag = (f"{dtype} D={d} Hq/Hkv={hq}/{hkv} causal={causal} "
+                           f"window={window} softcap={cap}")
+                    n_bad = outside_band(got, want, rtol, atol)
+                    if n_bad:
+                        raise AssertionError(
+                            f"flash_attention {tag}: {n_bad} elements "
+                            f"outside rtol={rtol} atol={atol} (max |err| "
+                            f"{float(err.max()):.3g})")
+                    if dtype == torch.bfloat16 and d == 256 and hq == 16:
+                        for what, wrong in _dropped(causal, window, cap, s):
+                            check_separates(
+                                f"flash_attention {tag}", want,
+                                flash_attention_plain(q, k, v, *wrong),
+                                rtol, atol, what)
+                    if not torch.equal(got, flash_attention_cuda(
+                            q, k, v, causal, window, cap)):
+                        raise AssertionError(f"flash_attention {tag}: repeat "
+                                             "launch differs")
+                    worst[dtype] = max(worst.get(dtype, 0.0),
+                                       float(err.max()))
+    torch.cuda.synchronize()
+    log(f"  {2 * 3 * len(heads) * len(masks)} cases within band; max |err| "
+        + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+        + "; repeat launches bit-identical")
+
+
+def _dropped(causal, window, softcap, s):
+    """(what, arguments) of the plain version with one of the masks or the
+    cap dropped, for each that changes the function at length ``s``."""
+    out = []
+    if window is not None and window < s:
+        out.append(("the window dropped", (causal, None, softcap)))
+    if causal:
+        out.append(("the causal mask dropped", (False, window, softcap)))
+    if softcap is not None:
+        out.append(("the soft-cap dropped", (causal, window, None)))
+    return out
+
+
+def _lm_tokens(seed: int, batch: int, seq: int, vocab: int):
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, vocab, (batch, seq)).astype(
+        np.int32)).cuda()
+
+
+def phase_lm_build(seed: int):
+    """gemma2-9b at full width and depth, bf16, weights drawn on the card
+    from ``seed``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import LM
+    cfg = get_config("gemma2-9b")
+    log(f"== gemma2-9b: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv} heads of {cfg.hd}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}, {cfg.dtype}")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    ms, model = once_ms(lambda: LM(cfg, device="cuda", generator=gen))
+    n = sum(p.numel() for p in model.parameters())
+    log(f"  {n / 1e9:.3f} B parameters, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card, drawn "
+        f"in {ms / 1e3:.1f} s")
+    return model
+
+
+def phase_prefill(model, tokens, reps: int = 3):
+    """The main path: build_prefill_step on B x S prompts; one warm-up and
+    ``reps`` timed prefills, each ending in a sync; 42 kernel launches per
+    prefill and no plain call."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.launch.steps import build_prefill_step
+    b, s = tokens.shape
+    cfg = model.cfg
+    log(f"== gemma2-9b prefill: {b} prompts of {s} tokens (prefill_32k cut "
+        f"to S {s}, batch {b}), 1 warm-up + {reps} timed")
+    step = build_prefill_step(cfg, "prefill_32k", batch=b, seq=s, model=model)
+    if step.in_specs["tokens"][0] != tuple(tokens.shape):
+        raise AssertionError(f"input spec {step.in_specs}")
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counters()
+    warm_ms, logits = once_ms(lambda: step.fn(tokens))
+    times = [once_ms(lambda: step.fn(tokens))[0] for _ in range(reps)]
+    counts = kernels.counters()
+    med = statistics.median(times)
+    log(f"  wall ms {[round(t, 1) for t in times]} (median {med:.1f}; "
+        f"warm-up {warm_ms:.1f}), {b * s / med * 1e3:.0f} tokens/s, peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"  counters {counts['flash_attention']} over {reps + 1} prefills")
+    check_counts(counts, "prefill", "prefill")
+    want = cfg.n_layers * (reps + 1)
+    if counts["flash_attention"]["launches"] != want:
+        raise AssertionError(f"{counts['flash_attention']} launches, "
+                             f"expected {want}")
+    if tuple(logits.shape) != (b, 1, cfg.vocab) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"prefill logits {tuple(logits.shape)}, finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    return counts, med
+
+
+def phase_decode(model, tokens, steps: int = 32, s_max: int = 32768):
+    """build_serve_step from init_cache(B, s_max): ``steps`` decode steps
+    fed the prompts' first tokens at positions 0..steps-1."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.launch.steps import build_serve_step
+    b = tokens.shape[0]
+    cfg = model.cfg
+    log(f"== gemma2-9b decode: {steps} steps at batch {b} from an empty "
+        f"{s_max}-slot cache (decode_32k with batch cut 128 -> {b})")
+    step = build_serve_step(cfg, "decode_32k", batch=b, seq=s_max,
+                            model=model)
+    torch.cuda.reset_peak_memory_stats()
+    caches = model.init_cache(b, s_max)
+    shapes = [{n: tuple(t.shape) for n, t in c.items()} for c in caches]
+    if shapes != [{n: shp for n, (shp, _) in c.items()}
+                  for c in step.in_specs["caches"]]:
+        raise AssertionError("caches differ from the step's input specs")
+    kernels.reset_counters()
+    times = []
+    for t in range(steps):
+        ms, (logits, caches) = once_ms(
+            lambda: step.fn(tokens[:, t:t + 1], t, caches))
+        times.append(ms)
+        if tuple(logits.shape) != (b, 1, cfg.vocab) or not bool(
+                torch.isfinite(logits).all()):
+            raise AssertionError(f"step {t}: logits {tuple(logits.shape)}")
+    counts = kernels.counters()
+    cache_gib = sum(t.numel() * t.element_size() for c in caches
+                    for t in c.values()) / 2**30
+    log(f"  ms per step: median {statistics.median(times):.2f} (first "
+        f"{times[0]:.2f}, last {times[-1]:.2f}), caches {cache_gib:.2f} GiB, "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        f"GiB; logits finite, shape {tuple(logits.shape)}")
+    if any(c["launches"] or c["plain_calls"] for c in counts.values()):
+        raise AssertionError(f"decode ran a kernel or plain version: {counts}")
+    log("  counters all 0 (decode attends in plain ops on the ring cache)")
+    del caches
+    torch.cuda.empty_cache()
+    return statistics.median(times)
+
+
+def phase_lm_consistency(seed: int, layers: int = 4, window: int = 32,
+                         n: int = 96, at=(31, 32, 63, 95)):
+    """The reference's decode-equals-forward check (tests/test_models.py:74)
+    at full width: gemma2-9b with ``layers`` layers, float32, window
+    ``window``.  Decoding n tokens one by one gives, at the positions
+    ``at``, the logits that prefill of that prefix gives (through the
+    kernel), within rtol 1e-3 / atol 1e-4."""
+    import dataclasses
+    import torch
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import LM
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("TF32 matmuls are on")
+    cfg = dataclasses.replace(get_config("gemma2-9b"), n_layers=layers,
+                              window=window, dtype=torch.float32)
+    log(f"== decode vs prefill: gemma2-9b widths, {layers} layers, float32, "
+        f"window {window}, {n} tokens, positions {list(at)}")
+    model = LM(cfg, device="cuda",
+               generator=torch.Generator(device="cuda").manual_seed(seed))
+    tokens = _lm_tokens(seed + 1, 2, n, cfg.vocab)
+    worst = 0.0
+    with torch.inference_mode():
+        kernels.reset_counters()
+        want = {p: model.prefill(tokens[:, :p + 1]) for p in at}
+        counts = kernels.counters()["flash_attention"]
+        caches = model.init_cache(2, n)
+        for t in range(n):
+            got, caches = model.decode_step(tokens[:, t:t + 1], t, caches)
+            if t in want:
+                err = (got - want[t]).abs()
+                bad = err > LM_ATOL + LM_RTOL * want[t].abs()
+                if bool(bad.any()):
+                    raise AssertionError(
+                        f"position {t}: {int(bad.sum())} logits outside "
+                        f"rtol={LM_RTOL} atol={LM_ATOL} (max |err| "
+                        f"{float(err.max()):.3g})")
+                worst = max(worst, float(err.max()))
+    if counts != {"launches": layers * len(at), "plain_calls": 0}:
+        raise AssertionError(f"prefills ran {counts}")
+    log(f"  max |err| {worst:.3g} (rtol {LM_RTOL}, atol {LM_ATOL}); prefills "
+        f"{counts}")
+    del model, caches
+    torch.cuda.empty_cache()
+
+
+def _device_report(prof, wall_ms: float, what: str, top: int = 12) -> None:
+    """Device time by kernel (the CUDA events' self time, summed over the
+    window; the operators that launch them are not counted again) and the
+    device's busy and idle share of the window's wall time."""
+    from torch.autograd import DeviceType
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        t = getattr(ev, "self_device_time_total", None)
+        if t is None:
+            t = ev.self_cuda_time_total
+        if t > 0:
+            rows.append((t / 1e3, ev.count, ev.key))
+    busy = sum(r[0] for r in rows)
+    share = 100 * busy / wall_ms
+    log(f"  {what}: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
+        f"({share:.1f} %), idle {100 - share:.1f} %; "
+        f"{sum(r[1] for r in rows)} kernels")
+    for ms, count, name in sorted(rows, reverse=True)[:top]:
+        log(f"    {ms:9.2f} ms {100 * ms / busy:5.1f} % x{count:<5d} "
+            f"{name[:110]}")
+
+
+def phase_lm_profile(model, tokens, steps: int = 3):
+    """torch.profiler over one prefill of ``tokens`` and ``steps`` decode
+    steps (after a warm-up of each): where the device time goes and how
+    much of the wall time the device idles."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.steps import build_prefill_step, build_serve_step
+    b, s = tokens.shape
+    log(f"== profile: gemma2-9b prefill of {b} x {s} tokens and {steps} "
+        "decode steps from a 32768-slot cache (torch.profiler, CPU + CUDA)")
+    pre = build_prefill_step(model.cfg, batch=b, seq=s, model=model)
+    pre.fn(tokens)
+    torch.cuda.synchronize()
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        ms, _ = once_ms(lambda: pre.fn(tokens))
+    _device_report(prof, ms, "prefill")
+    serve = build_serve_step(model.cfg, batch=b, seq=32768, model=model)
+    caches = model.init_cache(b, 32768)
+    serve.fn(tokens[:, :1], 0, caches)
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        ms, _ = once_ms(lambda: [serve.fn(tokens[:, t:t + 1], t, caches)
+                                 for t in range(1, steps + 1)])
+    _device_report(prof, ms, f"{steps} decode steps")
+    del caches
+    torch.cuda.empty_cache()
+
+
+def _unmasked_pairs(s: int, causal: bool, window):
+    """(query, key) pairs the masks keep, per batch and head."""
+    if not causal:
+        return s * s if window is None else sum(
+            s - max(0, q - window + 1) for q in range(s))
+    w = s if window is None else window
+    return sum(min(q + 1, w) for q in range(s))
+
+
+def _layer_qkv(model, tokens, layer: int):
+    """The q, k, v that layer ``layer``'s attention sees in prefill."""
+    import torch
+    from repro_torch.models.attention import _project
+    from repro_torch.models.lm import _apply_norm, block_fwd
+    cfg = model.cfg
+    kinds = cfg.layer_kinds
+    with torch.inference_mode():
+        x = model._embed(tokens)
+        pos = torch.arange(x.shape[1], device=x.device)
+        for i in range(layer):
+            x = block_fwd(kinds[i], model.layers[i], x, cfg, positions=pos)
+        p = model.layers[layer]
+        h = _apply_norm(p["ln1"], x, cfg)
+        q, k, v = _project(p["attn"], h, cfg.attn_cfg(kinds[layer]), pos)
+    # clones outside inference mode: flex_attention is compiled on them
+    return tuple(t.clone(memory_format=torch.contiguous_format)
+                 for t in (q, k, v))
+
+
+def _flex_ms(q, k, v, causal, window, softcap):
+    """(ms, max |diff| vs out) of torch's flex_attention (compiled), the
+    one PyTorch call with the same masks and soft-cap; the yardstick only."""
+    import torch
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    s = q.shape[2]
+
+    def mask_mod(b, h, qi, ki):
+        keep = ki <= qi if causal else ki >= 0
+        return keep & (ki > qi - window) if window is not None else keep
+
+    def capped(sc, b, h, qi, ki):
+        return softcap * torch.tanh(sc / softcap)
+
+    block_mask = create_block_mask(mask_mod, None, None, s, s, device="cuda")
+    fn = torch.compile(flex_attention)
+    call = lambda: fn(q, k, v, score_mod=capped if softcap else None,
+                      block_mask=block_mask, enable_gqa=True)
+    with torch.no_grad():
+        return cuda_ms(call, reps=5), call()
+
+
+def phase_flash_times(model, tokens, launches: int):
+    """flash_attention at the main path's shape, on the q, k, v of layer 0
+    (local) and layer 1 (global) of the prefill prompts: CUDA-event median
+    of 5, the plain version once, flex_attention (compiled) median of 5,
+    and the bound (4 D operations per unmasked pair and head at the bf16
+    tensor-core peak, against the bytes of q, k, v and out).  The band
+    must exclude the plain version with the layer's mask loosened (the
+    window dropped on the local layer, the causal mask on the global one),
+    and the kernel's float32 instantiation on the same q, k, v widened is
+    held at the float32 band.  The row gives the mean of one local and one
+    global launch: a prefill runs as many of each."""
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_plain)
+    cfg = model.cfg
+    per = {}
+    for layer in (0, 1):
+        kind = cfg.layer_kinds[layer]
+        acfg = cfg.attn_cfg(kind)
+        q, k, v = _layer_qkv(model, tokens, layer)
+        b, hq, s, d = q.shape
+        args = (acfg.causal, acfg.window, acfg.softcap)
+        rtol, atol = FLASH_TOL[str(q.dtype).split(".")[1]]
+        name = f"flash_attention {kind}"
+        ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, *args), reps=5)
+        plain_ms, want = once_ms(lambda: flash_attention_plain(q, k, v,
+                                                               *args))
+        got = flash_attention_cuda(q, k, v, *args)
+        err = check_close(f"{name} at main shapes", got, want, rtol, atol)
+        if not torch.equal(got, flash_attention_cuda(q, k, v, *args)):
+            raise AssertionError(f"{name}: repeat launch differs")
+        log(f"  {name}: median |out| {float(want.float().abs().median()):.3g}"
+            f", max |out| {float(want.float().abs().max()):.3g}")
+        wrong = ("the window dropped", (acfg.causal, None, acfg.softcap)) \
+            if acfg.window is not None else \
+            ("the causal mask dropped", (False, None, acfg.softcap))
+        check_separates(name, want, flash_attention_plain(q, k, v, *wrong[1]),
+                        rtol, atol, wrong[0])
+        del got, want
+        q32, k32, v32 = (t.float() for t in (q, k, v))
+        check_close(f"{name} float32 on the same inputs widened",
+                    flash_attention_cuda(q32, k32, v32, *args),
+                    flash_attention_plain(q32, k32, v32, *args),
+                    *FLASH_TOL["float32"])
+        del q32, k32, v32
+        torch.cuda.empty_cache()
+        pairs = _unmasked_pairs(s, acfg.causal, acfg.window)
+        t_ops = 4 * d * pairs * b * hq / PEAK_BF16
+        t_bytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() \
+            / PEAK_BYTES
+        try:
+            lib_ms, lib_out = _flex_ms(q, k, v, *args)
+            lib_err = float((lib_out.float() - flash_attention_cuda(
+                q, k, v, *args).float()).abs().max())
+            lib_note = f"flex_attention {lib_ms:.3f} ms (max |diff| vs the " \
+                f"kernel {lib_err:.3g})"
+        except Exception as e:   # the yardstick only: the port never calls it
+            lib_ms = None
+            lib_note = f"flex_attention none: {type(e).__name__}: " \
+                f"{str(e).splitlines()[0][:300] if str(e) else ''}"
+        per[kind] = dict(ms=ms, plain_ms=plain_ms, err=err, t_ops=t_ops,
+                         t_bytes=t_bytes, lib_ms=lib_ms)
+        log(f"  flash_attention {kind} (B {b}, Hq {hq}, Hkv {k.shape[1]}, S "
+            f"{s}, D {d}, {q.dtype}, window {acfg.window}, softcap "
+            f"{acfg.softcap}): {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
+            f"{max(t_ops, t_bytes) * 1e3:.3f} ms "
+            f"({'operations' if t_ops >= t_bytes else 'bytes'}; "
+            f"{4 * d * pairs * b * hq / 1e12:.3f} TFLOP, "
+            f"{4 * d * pairs * b * hq / ms / 1e9:.1f} TFLOP/s); {lib_note}")
+        del q, k, v
+        torch.cuda.empty_cache()
+    mean = lambda key: sum(p[key] for p in per.values()) / len(per)
+    libs = [p["lib_ms"] for p in per.values()]
+    row = _row("flash_attention",
+               "src/repro_torch/kernels/csrc/flash_attention.cu",
+               "src/repro/kernels/flash_attention.py:34", launches,
+               max(p["err"] for p in per.values()), mean("ms"),
+               mean("plain_ms"), mean("t_ops"), mean("t_bytes"))
+    row["library_ms"] = None if None in libs else sum(libs) / len(libs)
+    for kind, p in per.items():
+        row[f"ms_{kind}"] = p["ms"]
+        row[f"bound_ms_{kind}"] = max(p["t_ops"], p["t_bytes"]) * 1e3
+        row[f"library_ms_{kind}"] = p["lib_ms"]
+    return row
+
+
 def _row(name, source, replaces, launches, err, ms, plain_ms, t_ops,
          t_bytes):
     return {"name": name, "route": "cuda", "source": source,
@@ -708,8 +1163,8 @@ def phase_times(n: int, n_angles: int, ds, launches, per_iter, smi):
                      2 * vol_bytes / PEAK_BYTES))
     del x
     torch.cuda.empty_cache()
-    log("  library: none for any of the four. No single PyTorch call "
-        "projects along rays or transposes that gather; for bp_voxel, "
+    log("  library: none for any of the four CT kernels. No single PyTorch "
+        "call projects along rays or transposes that gather; for bp_voxel, "
         "grid_sample would need an A*Nz*Ny*Nx intermediate "
         f"({pairs * 4 / 1e9:.0f} GB here); the TV gradient's closed form "
         "has no single call (autograd of tv_value is many ops)")
@@ -727,7 +1182,9 @@ def phase_times(n: int, n_angles: int, ds, launches, per_iter, smi):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
-                    help="build and check the kernels at N=64 only")
+                    help="build and check the kernels only (CT at N=64)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the LM's weights and prompts")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -740,11 +1197,13 @@ def main(argv=None) -> int:
         phase_kernel_checks(64, 48)
         phase_bp_voxel_checks(64, 48)
         phase_tv_grad_checks(64)
+        phase_flash_checks()
         log(f"quick run passed in {time.perf_counter() - t_start:.0f}s")
         return 0
     phase_kernel_checks(128, 96)
     phase_bp_voxel_checks(128, 96)
     phase_tv_grad_checks(128)
+    phase_flash_checks()
     n, n_angles = 512, 512
     ds, x2, c_cgls, per_cgls = phase_main_plain(n, n_angles, iters=3)
     c_cgls_stream = phase_main_stream(n, n_angles, ds, x2,
@@ -766,10 +1225,26 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     runs = (c_cgls, c_cgls_stream, c_fdk, c_sart, c_sart_stream, c_asd,
             c_asd_stream, c_fista)
-    launches = {k: sum(c[k]["launches"] for c in runs) for k in c_cgls}
+    ct_kernels = ("fp_ray", "bp_matched", "bp_voxel", "tv_grad")
+    launches = {k: sum(c[k]["launches"] for c in runs) for k in ct_kernels}
     rows = phase_times(n, n_angles, ds, launches,
                        {"CGLS": per_cgls, "OS-SART": per_sart,
                         "ASD-POCS": per_asd, "FISTA": per_fista}, smi)
+    del ds
+    torch.cuda.empty_cache()
+    log(f"  CT phases done at {time.perf_counter() - t_start:.0f}s; device "
+        f"memory freed to {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    model = phase_lm_build(args.seed)
+    prompts = _lm_tokens(args.seed, 2, 8192, model.cfg.vocab)
+    c_prefill, _ = phase_prefill(model, prompts)
+    phase_decode(model, prompts)
+    log(f"== flash_attention times at the main path's shape (card: {smi})")
+    rows.append(phase_flash_times(model, prompts,
+                                  c_prefill["flash_attention"]["launches"]))
+    phase_lm_profile(model, prompts)
+    del model, prompts
+    torch.cuda.empty_cache()
+    phase_lm_consistency(args.seed)
     log(f"total {time.perf_counter() - t_start:.0f}s")
     print(smi)
     print(json.dumps({"kernels": rows}))

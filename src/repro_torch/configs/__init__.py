@@ -1,0 +1,98 @@
+"""Architecture configs and input-shape cells.
+
+Port of ``repro/configs``.  ``get_config(name)`` returns the full published
+config, ``reduced(name)`` a small config of the same family for CPU tests,
+``input_specs(cfg, shape)`` the concrete shape and dtype of every input of
+a (arch x shape) cell.  Only gemma2-9b is registered: the reference's other
+architectures need blocks the port does not run yet (ROADMAP A14).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.models.lm import ArchConfig, block_cache_shapes
+
+from . import gemma2_9b
+
+_MODULES = {
+    "gemma2-9b": gemma2_9b,
+}
+#: the reference's other architectures, not registered yet
+NOT_PORTED = ("zamba2-7b", "codeqwen1.5-7b", "stablelm-1.6b", "minicpm3-4b",
+              "hubert-xlarge", "llama-3.2-vision-11b", "moonshot-v1-16b-a3b",
+              "deepseek-moe-16b", "xlstm-350m")
+
+ARCH_NAMES = tuple(_MODULES)
+
+
+def _module(name: str):
+    if name in NOT_PORTED:
+        raise NotImplementedError(f"{name} is not ported to PyTorch yet "
+                                  "(ROADMAP A14)")
+    return _MODULES[name]
+
+
+def get_config(name: str) -> ArchConfig:
+    return _module(name).CONFIG
+
+
+def reduced(name: str) -> ArchConfig:
+    return _module(name).reduced()
+
+
+# --------------------------------------------------------------------------
+# shape cells (seq_len, global_batch) -- assigned to every LM arch
+# --------------------------------------------------------------------------
+
+SHAPES: Dict[str, Tuple[int, int]] = {
+    "train_4k": (4096, 256),
+    "prefill_32k": (32768, 32),
+    "decode_32k": (32768, 128),
+    "long_500k": (524288, 1),
+}
+
+DECODE_SHAPES = ("decode_32k", "long_500k")
+
+
+def cell_skip_reason(cfg: ArchConfig, shape: str) -> Optional[str]:
+    """None if the (arch, shape) cell runs; else the documented skip."""
+    if cfg.encoder_only and shape in DECODE_SHAPES:
+        return "encoder-only arch has no decode step"
+    if shape == "long_500k" and not cfg.sub_quadratic:
+        return "full-attention arch; 500k context needs sub-quadratic attn"
+    return None
+
+
+def input_specs(cfg: ArchConfig, shape: str, batch: Optional[int] = None,
+                seq: Optional[int] = None) -> Dict[str, Any]:
+    """``(shape, dtype)`` of every input of a cell's step, the cell's
+    sequence length and batch unless ``seq`` / ``batch`` cut them:
+
+    * train_*   -> {tokens, labels}
+    * prefill_* -> {tokens}
+    * decode_* / long_* -> {token, pos, caches}: ``pos`` is a Python int
+      (shape ()), ``caches`` a list of each layer's {name: (shape, dtype)}
+    """
+    s0, b0 = SHAPES[shape]
+    seq, batch = seq or s0, batch or b0
+
+    def tok(b, s):
+        return ((b, s), torch.int32)
+
+    if cfg.family == "vlm":
+        raise NotImplementedError("cross-attention inputs are not ported "
+                                  "yet (ROADMAP A14)")
+    if cfg.encoder_only or cfg.family == "audio":
+        raise NotImplementedError("frame-embedding inputs are not ported "
+                                  "yet (ROADMAP A14)")
+    if shape.startswith("train"):
+        return {"tokens": tok(batch, seq), "labels": ((batch, seq),
+                                                      torch.int32)}
+    if shape.startswith("prefill"):
+        return {"tokens": tok(batch, seq)}
+    return {"token": tok(batch, 1), "pos": ((), torch.int32),
+            "caches": [block_cache_shapes(kind, cfg, batch, seq)
+                       for kind in cfg.layer_kinds]}

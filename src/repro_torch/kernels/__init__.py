@@ -6,6 +6,9 @@
   family (``csrc/bp_voxel.cu``);
 * :mod:`.tv_grad` — the gradient of the smoothed TV objective, ASD-POCS's
   regulariser (``csrc/tv_grad.cu``);
+* :mod:`.flash_attention` — FlashAttention-2 forward with GQA, causal and
+  sliding-window masks and the logit soft-cap, the LM prefill's attention
+  (``csrc/flash_attention.cu``);
 * :mod:`.build` — ``nvcc`` at first use, ``ctypes`` loading.
 
 Importing this package builds and loads nothing.
@@ -17,13 +20,16 @@ from typing import Dict
 
 from .bp_matched import bp_matched_cuda, bp_matched_plain
 from .bp_voxel import bp_voxel_cuda, bp_voxel_plain
+from .flash_attention import flash_attention_cuda, flash_attention_plain
 from .fp_ray import fp_ray_cuda, fp_ray_plain
 from .tv_grad import tv_grad_cuda, tv_grad_plain
 
 _LAUNCHES = {"fp_ray": fp_ray_cuda, "bp_matched": bp_matched_cuda,
-             "bp_voxel": bp_voxel_cuda, "tv_grad": tv_grad_cuda}
+             "bp_voxel": bp_voxel_cuda, "tv_grad": tv_grad_cuda,
+             "flash_attention": flash_attention_cuda}
 _PLAIN = {"fp_ray": fp_ray_plain, "bp_matched": bp_matched_plain,
-          "bp_voxel": bp_voxel_plain, "tv_grad": tv_grad_plain}
+          "bp_voxel": bp_voxel_plain, "tv_grad": tv_grad_plain,
+          "flash_attention": flash_attention_plain}
 
 
 def reset_counters() -> None:

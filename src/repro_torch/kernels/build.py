@@ -6,7 +6,7 @@ interface, compiled by ``nvcc`` for Hopper::
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o lib<name>-<digest>.so csrc/<name>.cu
 
-(no ``--use_fast_math``: the kernels' tap arithmetic must stay IEEE fp32).
+(no ``--use_fast_math``: the kernels' arithmetic must stay IEEE fp32).
 The libraries go to ``build/repro_torch_kernels/`` at the root of the
 checkout, found from this file's location, never from the current
 directory.  The file name carries a digest of the sources and flags, so a
@@ -33,11 +33,12 @@ from typing import Callable, Dict, Iterable, Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 #: kernel name -> its source under csrc/
 SOURCES = {"fp_ray": "fp_ray.cu", "bp_matched": "bp_matched.cu",
-           "bp_voxel": "bp_voxel.cu", "tv_grad": "tv_grad.cu"}
+           "bp_voxel": "bp_voxel.cu", "tv_grad": "tv_grad.cu",
+           "flash_attention": "flash_attention.cu"}
 #: kernel name -> the headers under csrc/ its source includes
 HEADERS = {"fp_ray": ("joseph_common.cuh",),
            "bp_matched": ("joseph_common.cuh",),
-           "bp_voxel": (), "tv_grad": ()}
+           "bp_voxel": (), "tv_grad": (), "flash_attention": ()}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -138,8 +139,14 @@ VOXEL_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
 #: eps^2; device, stream
 TV_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_float]
                + [ctypes.c_int, ctypes.c_void_p])
+#: ctypes signature of csrc/flash_attention.cu's entry: q, k, v, out;
+#: b hq hkv s d dtype; scale; causal window; softcap; device, stream
+FLASH_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                  + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_float]
+                  + [ctypes.c_int, ctypes.c_void_p])
 ARGTYPES = {"fp_ray": JOSEPH_ARGTYPES, "bp_matched": JOSEPH_ARGTYPES,
-            "bp_voxel": VOXEL_ARGTYPES, "tv_grad": TV_ARGTYPES}
+            "bp_voxel": VOXEL_ARGTYPES, "tv_grad": TV_ARGTYPES,
+            "flash_attention": FLASH_ARGTYPES}
 
 
 def entry(name: str):

@@ -1,0 +1,79 @@
+"""Step builders of the LM serving path: prefill and serve (decode).
+
+Port of ``build_prefill_step`` / ``build_serve_step`` of
+``repro/launch/steps.py`` for one device: there are no shardings and no
+``jit``.  Each builder returns the step callable and the shapes of its
+inputs (``repro_torch.configs.input_specs``), with the model it runs.  The
+training builder is not ported yet (ROADMAP A14).
+
+    step = build_prefill_step(cfg, batch=2, seq=8192)   # on the GPU
+    logits = step.fn(tokens)                             # (B, 1, V) float32
+
+The builders run on the current CUDA device unless ``device="cpu"`` is
+passed, and raise when there is none.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Optional
+
+import torch
+
+from ..configs import input_specs
+from ..core.device import DeviceLike, resolve_device
+from ..models.lm import LM, ArchConfig
+
+
+@dataclasses.dataclass
+class BuiltStep:
+    fn: Callable                   # the step
+    in_specs: Dict[str, Any]       # {input: (shape, dtype)}
+    model: LM
+
+
+def _model(cfg: ArchConfig, model: Optional[LM], device: DeviceLike,
+           seed: int) -> LM:
+    if model is not None:
+        if model.cfg != cfg:
+            raise ValueError(f"the model runs {model.cfg.name}, not "
+                             f"{cfg.name}")
+        return model
+    dev = resolve_device(device)
+    return LM(cfg, device=dev,
+              generator=torch.Generator(device=dev).manual_seed(seed))
+
+
+def build_prefill_step(cfg: ArchConfig, shape: str = "prefill_32k", *,
+                       batch: Optional[int] = None, seq: Optional[int] = None,
+                       model: Optional[LM] = None, device: DeviceLike = None,
+                       seed: int = 0) -> BuiltStep:
+    """``fn(tokens) -> logits``: last-position float32 logits (B, 1, V) of
+    the prompts (B, S).  ``batch`` / ``seq`` cut the cell's shape; the model
+    is ``model``, or a new one with weights drawn from ``seed``."""
+    lm = _model(cfg, model, device, seed)
+    specs = input_specs(cfg, shape, batch=batch, seq=seq)
+
+    @torch.inference_mode()
+    def prefill(tokens: torch.Tensor) -> torch.Tensor:
+        return lm.prefill(tokens)
+
+    return BuiltStep(prefill, specs, lm)
+
+
+def build_serve_step(cfg: ArchConfig, shape: str = "decode_32k", *,
+                     batch: Optional[int] = None, seq: Optional[int] = None,
+                     model: Optional[LM] = None, device: DeviceLike = None,
+                     seed: int = 0) -> BuiltStep:
+    """``fn(token, pos, caches) -> (logits, caches)``: one decode step of
+    tokens (B, 1) at position ``pos`` on caches from
+    ``model.init_cache(batch, seq)``, updated in place (the reference
+    donates them)."""
+    lm = _model(cfg, model, device, seed)
+    specs = input_specs(cfg, shape, batch=batch, seq=seq)
+
+    @torch.inference_mode()
+    def serve_step(token: torch.Tensor, pos: int, caches):
+        return lm.decode_step(token, pos, caches)
+
+    return BuiltStep(serve_step, specs, lm)

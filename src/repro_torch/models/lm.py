@@ -1,0 +1,392 @@
+"""The composable LM, for the dense attention blocks, on one device.
+
+Port of ``repro/models/lm.py``.  An architecture is a repeating pattern of
+typed blocks plus an optional prelude.  The reference stacks each pattern
+position's parameters over the repeats and scans over them; the port keeps
+one module per layer, in the order the scan runs them: layer
+``len(prelude) + r * len(pattern) + i`` is pattern position i of repeat r.
+
+Block kinds ported:
+
+``attn``         pre-norm GQA + pre-norm gated FFN (llama/qwen style)
+``attn_local``   same, sliding window + soft-cap (gemma2; sandwich norms)
+``attn_global``  same, full attention + soft-cap (gemma2)
+``attn_bidir``   non-causal LayerNorm encoder block (hubert)
+
+Every other kind (``mla``, ``moe``, ``dense``, ``xattn``, ``mamba``,
+``mamba_shared``, ``mlstm``, ``slstm``) raises ``NotImplementedError``
+(ROADMAP A14).  Caches: each attention layer owns ``{"k", "v", "pos"}``;
+sliding-window layers a ring of ``min(window, s_max)`` slots.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..core.device import DeviceLike, resolve_device
+from . import attention as attn_mod
+from . import ffn as ffn_mod
+from .attention import AttnConfig
+from .common import dense_init, embed_init, layer_norm, rms_norm
+from .ffn import FFNConfig
+
+ATTN_KINDS = ("attn", "attn_local", "attn_global", "attn_bidir")
+#: block kinds of the reference that the port does not run yet
+NOT_PORTED_KINDS = ("mla", "moe", "dense", "xattn", "mamba", "mamba_shared",
+                    "mlstm", "slstm")
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    """The reference's ``ArchConfig``, field for field, with ``dtype`` a
+    torch dtype.  The MLA, MoE, SSM and VLM fields are carried so that
+    config files copy over; their blocks are not ported yet."""
+    name: str
+    family: str                 # dense | moe | hybrid | ssm | audio | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv: int
+    d_ff: int
+    vocab: int
+    pattern: Tuple[str, ...] = ("attn",)
+    prelude: Tuple[str, ...] = ()
+    head_dim: int = 0                   # 0 -> d_model // n_heads
+    # attention extras
+    window: int = 0                     # sliding window (attn_local)
+    softcap: float = 0.0                # attention logit softcap
+    final_softcap: float = 0.0          # final logit softcap (gemma2)
+    qk_norm: bool = False
+    rope_theta: float = 10000.0
+    # MLA (minicpm3)
+    q_lora_rank: int = 768
+    kv_lora_rank: int = 256
+    qk_nope_dim: int = 64
+    qk_rope_dim: int = 32
+    v_head_dim: int = 64
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared: int = 0
+    d_expert: int = 0
+    # SSM / hybrid
+    ssm_state: int = 0
+    mamba_head_dim: int = 64
+    ssd_chunk: int = 256
+    # VLM
+    n_ctx_tokens: int = 0               # patch-embedding count (stub frontend)
+    # misc
+    norm: str = "rms"                   # rms | layer
+    activation: str = "silu"
+    tie_embed: bool = True
+    embed_scale: bool = False           # gemma: x *= sqrt(d)
+    encoder_only: bool = False
+    sub_quadratic: bool = False         # long_500k eligible
+    seq_parallel: bool = False          # read by no code: one device
+    dtype: Any = torch.bfloat16
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def n_repeats(self) -> int:
+        n = self.n_layers - len(self.prelude)
+        if n % len(self.pattern):
+            raise ValueError(f"{self.name}: {n} layers not divisible by "
+                             f"pattern {self.pattern}")
+        return n // len(self.pattern)
+
+    @property
+    def layer_kinds(self) -> Tuple[str, ...]:
+        """The kind of every layer, in the order they run."""
+        return tuple(self.prelude) + tuple(self.pattern) * self.n_repeats
+
+    def attn_cfg(self, kind: str) -> AttnConfig:
+        return AttnConfig(
+            d_model=self.d_model, n_heads=self.n_heads, n_kv=self.n_kv,
+            head_dim=self.hd,
+            causal=not self.encoder_only and kind != "attn_bidir",
+            window=self.window if kind == "attn_local" else None,
+            softcap=self.softcap or None, qk_norm=self.qk_norm,
+            rope_theta=self.rope_theta)
+
+    def ffn_cfg(self) -> FFNConfig:
+        return FFNConfig(self.d_model, self.d_ff, self.activation,
+                         gated=self.norm == "rms")
+
+    def param_count(self) -> int:
+        """Parameter count, from shapes alone (a model on the meta
+        device)."""
+        return sum(t.numel() for t in LM(self, device="meta").parameters())
+
+
+def _check_kind(kind: str) -> None:
+    if kind in NOT_PORTED_KINDS:
+        raise NotImplementedError(
+            f"block kind {kind!r} is not ported to PyTorch yet (ROADMAP A14)")
+    if kind not in ATTN_KINDS:
+        raise ValueError(f"unknown block kind {kind!r}")
+
+
+# --------------------------------------------------------------------------
+# blocks
+# --------------------------------------------------------------------------
+
+def _norm_init(cfg: ArchConfig, dtype, device) -> Dict[str, torch.Tensor]:
+    if cfg.norm == "layer":
+        return {"scale": torch.ones((cfg.d_model,), dtype=dtype,
+                                    device=device),
+                "bias": torch.zeros((cfg.d_model,), dtype=dtype,
+                                    device=device)}
+    return {"scale": torch.zeros((cfg.d_model,), dtype=dtype, device=device)}
+
+
+def _apply_norm(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    if cfg.norm == "layer":
+        return layer_norm(x, p["scale"], p["bias"])
+    return rms_norm(x, p["scale"])
+
+
+def init_block(gen: Optional[torch.Generator], kind: str, cfg: ArchConfig,
+               device=None) -> Dict[str, Any]:
+    _check_kind(kind)
+    dt = cfg.dtype
+    p = {"ln1": _norm_init(cfg, dt, device),
+         "attn": attn_mod.init_gqa(gen, cfg.attn_cfg(kind), dt, device),
+         "ln2": _norm_init(cfg, dt, device),
+         "ffn": ffn_mod.init_ffn(gen, cfg.ffn_cfg(), dt, device)}
+    if kind in ("attn_local", "attn_global"):       # gemma2 sandwich norms
+        p["post_ln1"] = _norm_init(cfg, dt, device)
+        p["post_ln2"] = _norm_init(cfg, dt, device)
+    return p
+
+
+def _attn_then_ffn(p, x: torch.Tensor, a: torch.Tensor,
+                   cfg: ArchConfig) -> torch.Tensor:
+    """The rest of a block after its attention output ``a``: the residual
+    add (through gemma2's post-norm), then the pre-normed FFN and its
+    post-norm, added to the residual."""
+    if "post_ln1" in p:
+        a = _apply_norm(p["post_ln1"], a, cfg)
+    x = x + a
+    f = ffn_mod.ffn_fwd(p["ffn"], _apply_norm(p["ln2"], x, cfg),
+                        cfg.ffn_cfg())
+    if "post_ln2" in p:
+        f = _apply_norm(p["post_ln2"], f, cfg)
+    return x + f
+
+
+def block_fwd(kind: str, p, x: torch.Tensor, cfg: ArchConfig,
+              positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    _check_kind(kind)
+    a = attn_mod.gqa_fwd(p["attn"], _apply_norm(p["ln1"], x, cfg),
+                         cfg.attn_cfg(kind), positions=positions)
+    return _attn_then_ffn(p, x, a, cfg)
+
+
+def block_decode(kind: str, p, x: torch.Tensor, cache, cfg: ArchConfig,
+                 pos: int):
+    """Single-token step.  Returns (x, cache)."""
+    _check_kind(kind)
+    if kind == "attn_bidir":
+        raise ValueError("an encoder block has no decode step")
+    a, cache = attn_mod.gqa_decode(p["attn"], _apply_norm(p["ln1"], x, cfg),
+                                   cache, cfg.attn_cfg(kind), pos)
+    return _attn_then_ffn(p, x, a, cfg), cache
+
+
+def block_cache_shapes(kind: str, cfg: ArchConfig, batch: int,
+                       s_max: int) -> Dict[str, Tuple[Tuple[int, ...], Any]]:
+    """``{name: (shape, dtype)}`` of one layer's decode cache."""
+    _check_kind(kind)
+    if kind == "attn_bidir":
+        raise ValueError("an encoder block has no decode cache")
+    s = min(cfg.window, s_max) if kind == "attn_local" else s_max
+    kv = ((batch, cfg.n_kv, s, cfg.hd), cfg.dtype)
+    return {"k": kv, "v": kv, "pos": ((s,), torch.int32)}
+
+
+def block_cache_zeros(kind: str, cfg: ArchConfig, batch: int, s_max: int,
+                      device=None) -> Dict[str, torch.Tensor]:
+    """Empty decode cache for one layer: K/V zeros, every slot's position
+    -1.  Sliding-window layers get a ring of ``min(window, s_max)``
+    slots."""
+    shapes = block_cache_shapes(kind, cfg, batch, s_max)
+    cache = {n: torch.zeros(shp, dtype=dt, device=device)
+             for n, (shp, dt) in shapes.items()}
+    cache["pos"].fill_(-1)
+    return cache
+
+
+# --------------------------------------------------------------------------
+# the model
+# --------------------------------------------------------------------------
+
+class ParamTree(nn.Module):
+    """A nested dict of tensors as a module, read as the reference reads
+    its pytrees (``p["attn"]["wq"]``).  The tensors become parameters that
+    need no gradient: the port serves, it does not train yet."""
+
+    def __init__(self, tree: Dict[str, Any]):
+        super().__init__()
+        for name, val in tree.items():
+            if isinstance(val, dict):
+                self.add_module(name, ParamTree(val))
+            else:
+                self.register_parameter(
+                    name, nn.Parameter(val, requires_grad=False))
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._parameters or name in self._modules
+
+
+class LM(nn.Module):
+    """The model: ``forward``, ``logits``, ``prefill``, ``init_cache``,
+    ``decode_step``.
+
+    Built on ``device`` (the current CUDA device when None, which raises
+    without one; pass ``device="cpu"`` for the CPU) with weights drawn from
+    ``generator`` (a ``torch.Generator`` on that device; seed 0 when None):
+    truncated-normal fan-in weights, N(0, 0.02^2) embeddings, zero norm
+    scales, as the reference.  On the CUDA device, attention runs the
+    hand-written kernel."""
+
+    def __init__(self, cfg: ArchConfig, device: DeviceLike = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        dev = resolve_device(device)
+        for kind in cfg.layer_kinds:
+            _check_kind(kind)
+        if generator is None and dev.type != "meta":
+            generator = torch.Generator(device=dev).manual_seed(0)
+        self.cfg = cfg
+        self.device = dev
+        gen, dt = generator, cfg.dtype
+        self.embed = nn.Parameter(
+            embed_init(gen, (cfg.vocab, cfg.d_model), dt, dev),
+            requires_grad=False)
+        self.final_norm = ParamTree(_norm_init(cfg, dt, dev))
+        self.layers = nn.ModuleList(
+            ParamTree(init_block(gen, kind, cfg, dev))
+            for kind in cfg.layer_kinds)
+        if not cfg.tie_embed:
+            self.lm_head = nn.Parameter(
+                dense_init(gen, (cfg.vocab, cfg.d_model), 1, dt, dev),
+                requires_grad=False)
+
+    # ---- forward -----------------------------------------------------------
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        x = self.embed[tokens]
+        if cfg.embed_scale:
+            # the reference multiplies by a Python float, which JAX rounds
+            # to the model's type first
+            x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+        return x
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Full-sequence pass: the final-normed hidden states (B, S, D).
+        (The reference also returns its decode caches and MoE loss; the
+        port's prefill needs neither.)"""
+        cfg = self.cfg
+        x = self._embed(tokens)
+        positions = torch.arange(x.shape[1], device=x.device)
+        for kind, p in zip(cfg.layer_kinds, self.layers):
+            x = block_fwd(kind, p, x, cfg, positions=positions)
+        return _apply_norm(self.final_norm, x, cfg)
+
+    def logits(self, hidden: torch.Tensor) -> torch.Tensor:
+        """float32 logits against the (tied) embedding, with the final
+        soft-cap."""
+        cfg = self.cfg
+        emb = self.embed if cfg.tie_embed else self.lm_head
+        lg = hidden.float() @ emb.float().t()
+        if cfg.final_softcap:
+            lg = cfg.final_softcap * torch.tanh(lg / cfg.final_softcap)
+        return lg
+
+    # ---- serving -----------------------------------------------------------
+    def prefill(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Last-position logits (B, 1, V) of the prompts (no cache, as the
+        reference's lowered serving path)."""
+        return self.logits(self.forward(tokens)[:, -1:])
+
+    def init_cache(self, batch: int, s_max: int) -> List[Dict[str, Any]]:
+        """Empty decode caches, one per layer, on the model's device."""
+        return [block_cache_zeros(kind, self.cfg, batch, s_max, self.device)
+                for kind in self.cfg.layer_kinds]
+
+    def decode_step(self, token: torch.Tensor, pos: int, caches):
+        """One-token decode.  token: (B, 1) integer; pos: the absolute
+        position (int).  Returns (logits
+        (B, 1, V) float32, caches), the caches updated in place."""
+        cfg = self.cfg
+        x = self._embed(token)
+        for i, (kind, p) in enumerate(zip(cfg.layer_kinds, self.layers)):
+            x, caches[i] = block_decode(kind, p, x, caches[i], cfg, pos)
+        x = _apply_norm(self.final_norm, x, cfg)
+        return self.logits(x), caches
+
+
+# --------------------------------------------------------------------------
+# weights from the reference
+# --------------------------------------------------------------------------
+
+def _tensor(a) -> torch.Tensor:
+    """A numpy array (bfloat16 ones included, as ``np.asarray`` gives them
+    from JAX) as a CPU tensor."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def _flatten(tree, prefix: str, out: Dict[str, Any]) -> None:
+    for name, val in tree.items():
+        key = f"{prefix}.{name}" if prefix else name
+        if isinstance(val, dict):
+            _flatten(val, key, out)
+        else:
+            out[key] = val
+
+
+def load_reference_params(tree: Dict[str, Any], cfg: ArchConfig,
+                          device: DeviceLike = None) -> LM:
+    """The port's model holding the reference's parameters.
+
+    ``tree`` is the JAX package's ``LM.init`` output as numpy arrays
+    (``jax.tree.map(np.asarray, params)``).  The reference stacks each
+    pattern position over the repeats: ``stack/b{i}/...[r]`` is layer
+    ``len(prelude) + r * len(pattern) + i`` (for gemma2, repeat r runs b0,
+    the local layer, then b1, the global one); ``prelude/p{i}`` is layer
+    i."""
+    dev = resolve_device(device)
+    model = LM(cfg, device="meta")
+    state: Dict[str, Any] = {}
+    _flatten({k: v for k, v in tree.items()
+              if k not in ("stack", "prelude")}, "", state)
+    n_pre, n_pat = len(cfg.prelude), len(cfg.pattern)
+    for i in range(n_pre):
+        _flatten(tree["prelude"][f"p{i}"], f"layers.{i}", state)
+    for i in range(n_pat):
+        flat: Dict[str, Any] = {}
+        _flatten(tree["stack"][f"b{i}"], "", flat)
+        for r in range(cfg.n_repeats):
+            layer = n_pre + r * n_pat + i
+            for key, arr in flat.items():
+                state[f"layers.{layer}.{key}"] = np.asarray(arr)[r]
+    state = {k: _tensor(v).to(device=dev, dtype=cfg.dtype)
+             for k, v in state.items()}
+    model.load_state_dict(state, strict=True, assign=True)
+    model.device = dev
+    return model

@@ -147,7 +147,8 @@ def test_wrappers_take_the_plain_version_on_cpu_tensors():
     assert c == {"fp_ray": {"launches": 0, "plain_calls": 1},
                  "bp_matched": {"launches": 0, "plain_calls": 1},
                  "bp_voxel": {"launches": 0, "plain_calls": 0},
-                 "tv_grad": {"launches": 0, "plain_calls": 0}}
+                 "tv_grad": {"launches": 0, "plain_calls": 0},
+                 "flash_attention": {"launches": 0, "plain_calls": 0}}
     np.testing.assert_array_equal(
         p.numpy(), fp_ray_plain(torch.from_numpy(vol), tg, ang).numpy())
 
