@@ -15,11 +15,16 @@ CT paths run at N=512 (512^3 volume, 512^2 detector, 512 angles):
   descent on the TV-gradient kernel (``tv_grad``), in-core and streamed;
 * FISTA-TV on ``fp_ray`` and ``bp_matched`` with the ROF prox, in-core.
 
+``bp_matched`` reads each voxel's taps off per-plane tables in shared
+memory.
+
 The LM serving path runs gemma2-9b at full width and depth (42 layers,
 bf16, seeded random weights made on the card):
 
 * prefill of 2 prompts of 8192 tokens through the FlashAttention kernel
-  (``flash_attention``), 42 launches per prefill;
+  (``flash_attention``), 42 launches per prefill, every one on its
+  tensor-core path (bf16 wgmma; the float32 SIMT path serves float32
+  inputs, as in the decode-vs-prefill check below);
 * 32 decode steps on a 32768-slot ring cache (plain PyTorch ops);
 * a torch.profiler window over one prefill and three decode steps (device
   time by kernel, device idle share);
@@ -157,6 +162,14 @@ def check_counts(counts, path: str, what: str) -> None:
         c = counts[name]
         if c["launches"] <= 0 or c["plain_calls"] != 0:
             raise AssertionError(f"{name}: {what} ran {c}")
+
+
+def flash_paths():
+    """flash_attention's launches since the counters were set to 0, by
+    kernel: the bfloat16 tensor-core one and the float32 SIMT one."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    wgmma = flash_attention_cuda.wgmma_launches
+    return {"wgmma": wgmma, "simt": flash_attention_cuda.launches - wgmma}
 
 
 def launches_between(before, after):
@@ -325,6 +338,8 @@ def phase_main_stream(n: int, n_angles: int, ds, x2_plain, device_bytes):
                              "slabs")
     tracer = obs.Tracer(enabled=True)
     prev = obs.set_tracer(tracer)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     kernels.reset_counters()
     try:
         t0 = time.perf_counter()
@@ -335,8 +350,14 @@ def phase_main_stream(n: int, n_angles: int, ds, x2_plain, device_bytes):
     finally:
         obs.set_tracer(prev)
     counts = kernels.counters()
+    # the data set and the in-core iterate stay on the card: the run's own
+    # peak is what it adds to them
     log(f"  seconds per iteration {[round(s, 3) for s in res.seconds]}, "
-        f"rel_err {res.rel_err:.4f}; counters {counts}")
+        f"rel_err {res.rel_err:.4f}, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"({(torch.cuda.max_memory_allocated() - base) / 2**20:.0f} MiB "
+        f"above the {base / 2**30:.2f} GiB held before it); counters "
+        f"{counts}")
     # host-clock span totals: compute spans end in a device sync, so they
     # hold the kernels' time; the rest of the wall time is host work
     phases = tracer.phase_seconds()
@@ -672,8 +693,10 @@ def phase_flash_checks():
              (False, 64, None), (True, 4096, 50.0), (False, 4096, 50.0))
     log(f"== flash_attention checks at S={s}, D 64/128/256, Hq/Hkv 1/2/8, "
         f"{len(masks)} mask and cap settings, float32 and bfloat16")
+    from repro_torch import kernels
     gen = torch.Generator(device="cuda").manual_seed(4)
     worst = {}
+    kernels.reset_counters()
     for dtype in (torch.float32, torch.bfloat16):
         rtol, atol = FLASH_TOL[str(dtype).split(".")[1]]
         for d in (64, 128, 256):
@@ -707,9 +730,15 @@ def phase_flash_checks():
                     worst[dtype] = max(worst.get(dtype, 0.0),
                                        float(err.max()))
     torch.cuda.synchronize()
-    log(f"  {2 * 3 * len(heads) * len(masks)} cases within band; max |err| "
+    n_cases = 3 * len(heads) * len(masks)
+    paths = flash_paths()
+    if paths != {"wgmma": 2 * n_cases, "simt": 2 * n_cases}:
+        raise AssertionError(f"flash_attention paths {paths}: bfloat16 must "
+                             "launch the tensor-core kernel, float32 the SIMT "
+                             "one")
+    log(f"  {2 * n_cases} cases within band; max |err| "
         + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
-        + "; repeat launches bit-identical")
+        + f"; repeat launches bit-identical; launches by path {paths}")
 
 
 def _dropped(causal, window, softcap, s):
@@ -775,12 +804,16 @@ def phase_prefill(model, tokens, reps: int = 3):
     log(f"  wall ms {[round(t, 1) for t in times]} (median {med:.1f}; "
         f"warm-up {warm_ms:.1f}), {b * s / med * 1e3:.0f} tokens/s, peak "
         f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    log(f"  counters {counts['flash_attention']} over {reps + 1} prefills")
+    paths = flash_paths()
+    log(f"  counters {counts['flash_attention']}, by path {paths}, over "
+        f"{reps + 1} prefills")
     check_counts(counts, "prefill", "prefill")
     want = cfg.n_layers * (reps + 1)
-    if counts["flash_attention"]["launches"] != want:
-        raise AssertionError(f"{counts['flash_attention']} launches, "
-                             f"expected {want}")
+    if counts["flash_attention"]["launches"] != want or \
+            paths != {"wgmma": want, "simt": 0}:
+        raise AssertionError(f"{counts['flash_attention']} launches, by path "
+                             f"{paths}; expected {want}, all on the "
+                             "tensor-core path")
     if tuple(logits.shape) != (b, 1, cfg.vocab) or not bool(
             torch.isfinite(logits).all()):
         raise AssertionError(f"prefill logits {tuple(logits.shape)}, finite "
@@ -857,6 +890,7 @@ def phase_lm_consistency(seed: int, layers: int = 4, window: int = 32,
         kernels.reset_counters()
         want = {p: model.prefill(tokens[:, :p + 1]) for p in at}
         counts = kernels.counters()["flash_attention"]
+        paths = flash_paths()
         caches = model.init_cache(2, n)
         for t in range(n):
             got, caches = model.decode_step(tokens[:, t:t + 1], t, caches)
@@ -869,10 +903,11 @@ def phase_lm_consistency(seed: int, layers: int = 4, window: int = 32,
                         f"rtol={LM_RTOL} atol={LM_ATOL} (max |err| "
                         f"{float(err.max()):.3g})")
                 worst = max(worst, float(err.max()))
-    if counts != {"launches": layers * len(at), "plain_calls": 0}:
-        raise AssertionError(f"prefills ran {counts}")
+    if counts != {"launches": layers * len(at), "plain_calls": 0} or \
+            paths != {"wgmma": 0, "simt": layers * len(at)}:
+        raise AssertionError(f"prefills ran {counts}, by path {paths}")
     log(f"  max |err| {worst:.3g} (rtol {LM_RTOL}, atol {LM_ATOL}); prefills "
-        f"{counts}")
+        f"{counts}, by path {paths}")
     del model, caches
     torch.cuda.empty_cache()
 
@@ -1042,15 +1077,18 @@ def phase_flash_times(model, tokens, launches: int):
             lib_ms = None
             lib_note = f"flex_attention none: {type(e).__name__}: " \
                 f"{str(e).splitlines()[0][:300] if str(e) else ''}"
+        flop = 4 * d * pairs * b * hq
         per[kind] = dict(ms=ms, plain_ms=plain_ms, err=err, t_ops=t_ops,
-                         t_bytes=t_bytes, lib_ms=lib_ms)
+                         t_bytes=t_bytes, lib_ms=lib_ms,
+                         tflops=flop / ms / 1e9,
+                         share=max(t_ops, t_bytes) * 1e3 / ms)
         log(f"  flash_attention {kind} (B {b}, Hq {hq}, Hkv {k.shape[1]}, S "
             f"{s}, D {d}, {q.dtype}, window {acfg.window}, softcap "
             f"{acfg.softcap}): {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
             f"{max(t_ops, t_bytes) * 1e3:.3f} ms "
             f"({'operations' if t_ops >= t_bytes else 'bytes'}; "
-            f"{4 * d * pairs * b * hq / 1e12:.3f} TFLOP, "
-            f"{4 * d * pairs * b * hq / ms / 1e9:.1f} TFLOP/s); {lib_note}")
+            f"{flop / 1e12:.3f} TFLOP, {flop / ms / 1e9:.1f} TFLOP/s, "
+            f"{100 * per[kind]['share']:.1f} % of the bound); {lib_note}")
         del q, k, v
         torch.cuda.empty_cache()
     mean = lambda key: sum(p[key] for p in per.values()) / len(per)
@@ -1061,10 +1099,14 @@ def phase_flash_times(model, tokens, launches: int):
                max(p["err"] for p in per.values()), mean("ms"),
                mean("plain_ms"), mean("t_ops"), mean("t_bytes"))
     row["library_ms"] = None if None in libs else sum(libs) / len(libs)
+    row["tflops"] = mean("tflops")
+    row["bound_share"] = row["bound_ms"] / row["ms"]
     for kind, p in per.items():
         row[f"ms_{kind}"] = p["ms"]
         row[f"bound_ms_{kind}"] = max(p["t_ops"], p["t_bytes"]) * 1e3
         row[f"library_ms_{kind}"] = p["lib_ms"]
+        row[f"tflops_{kind}"] = p["tflops"]
+        row[f"bound_share_{kind}"] = p["share"]
     return row
 
 

@@ -8,7 +8,8 @@
   regulariser (``csrc/tv_grad.cu``);
 * :mod:`.flash_attention` — FlashAttention-2 forward with GQA, causal and
   sliding-window masks and the logit soft-cap, the LM prefill's attention
-  (``csrc/flash_attention.cu``);
+  (``csrc/flash_attention.cu``: a tensor-core kernel for bfloat16, a SIMT
+  kernel for float32);
 * :mod:`.build` — ``nvcc`` at first use, ``ctypes`` loading.
 
 Importing this package builds and loads nothing.
@@ -38,11 +39,13 @@ def reset_counters() -> None:
         fn.launches = 0
     for fn in _PLAIN.values():
         fn.calls = 0
+    flash_attention_cuda.wgmma_launches = 0
 
 
 def counters() -> Dict[str, Dict[str, int]]:
     """``{kernel: {"launches": n, "plain_calls": m}}`` since the last
-    :func:`reset_counters`."""
+    :func:`reset_counters` (``flash_attention_cuda.wgmma_launches`` says how
+    many of flash_attention's launches took its tensor-core kernel)."""
     return {name: {"launches": _LAUNCHES[name].launches,
                    "plain_calls": _PLAIN[name].calls}
             for name in _LAUNCHES}

@@ -11,8 +11,11 @@ to fp32 summation tolerance.
 
 * :func:`bp_matched_cuda` launches the hand-written CUDA kernel
   (``csrc/bp_matched.cu``, replacing the Pallas ``_bp_matched_kernel``): a
-  deterministic gather, one thread per output voxel, replaying fp_ray's
-  tap arithmetic through the shared ``joseph_common.cuh``;
+  deterministic gather, one thread per output voxel, reading its taps off
+  per-plane tables in shared memory that a block fills once per angle
+  with fp_ray's tap arithmetic (the shared ``joseph_common.cuh``); a pass
+  before it scales the projections by each ray's seg into a scratch of
+  :data:`SEG_CHUNK` angles, and the two run chunk by chunk;
 * :func:`bp_matched_plain` is the vjp of the plain forward projector,
   taken plane by plane (the forward is a sum of independent per-plane
   terms, so the per-plane vjps are the rows of the whole vjp, and the
@@ -32,6 +35,11 @@ import torch
 from ..core.geometry import ConeGeometry
 from .fp_ray import (_check_cuda, _plane_sample, _rays, angle_constants,
                      launch, plane_centers)
+
+#: angles of the kernel's scratch (the projections times seg): at most
+#: SEG_CHUNK * Nv * Nu * 4 bytes beside the projections, 8 MiB at a 512^2
+#: detector, a quarter of the streamed backprojection's 32-angle chunk
+SEG_CHUNK = 8
 
 
 def _check_proj(proj: torch.Tensor, geo: ConeGeometry, n_angles: int):
@@ -88,8 +96,12 @@ def bp_matched_cuda(proj: torch.Tensor, geo: ConeGeometry, angles,
     # kernel writes the marching-plane layout (Nx, planes, Ny)
     out_t = torch.empty((nx, planes, ny), dtype=torch.float32,
                         device=proj.device)
-    launch("bp_matched", proj.contiguous(), consts,
-           plane_centers(geo, proj.device), out_t, geo, planes, z0)
+    proj = proj.contiguous()
+    xc = plane_centers(geo, proj.device)
+    gs = proj.new_empty((min(consts.shape[0], SEG_CHUNK),) + proj.shape[1:])
+    launch("bp_matched", (proj.data_ptr(), consts.data_ptr(), xc.data_ptr(),
+                          out_t.data_ptr(), gs.data_ptr(), gs.shape[0]),
+           consts, geo, planes, z0)
     bp_matched_cuda.launches += 1
     return out_t.permute(1, 2, 0).contiguous()
 

@@ -123,12 +123,16 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-#: ctypes signature of the Joseph pair's entries (csrc/fp_ray.cu,
-#: csrc/bp_matched.cu): four pointers, n_angles, nz, ny, nx, nz_slab, nv,
-#: nu, ten floats (dz dy dx dv du offz offy offv offu z0), device, stream
-JOSEPH_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-                   + [ctypes.c_float] * 10
-                   + [ctypes.c_int, ctypes.c_void_p])
+#: the arguments both entries of the Joseph pair take after their own:
+#: n_angles, nz, ny, nx, nz_slab, nv, nu, ten floats (dz dy dx dv du offz
+#: offy offv offu z0), device, stream
+JOSEPH_TAIL = ([ctypes.c_int] * 7 + [ctypes.c_float] * 10
+               + [ctypes.c_int, ctypes.c_void_p])
+#: csrc/fp_ray.cu's entry: vol, consts, xc, out, then the Joseph tail
+FP_RAY_ARGTYPES = [ctypes.c_void_p] * 4 + JOSEPH_TAIL
+#: csrc/bp_matched.cu's entry: proj, consts, xc, out, the gs scratch and
+#: its angle count seg_chunk, then the Joseph tail
+BP_MATCHED_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] + JOSEPH_TAIL
 #: ctypes signature of csrc/bp_voxel.cu's entry: proj, consts, out;
 #: n_angles nz ny nx planes nv nu; fourteen floats (dz dy dx dv du offz
 #: offy offx offv/dv offu DSO DSD DSO/DSD z_start); weight, device, stream
@@ -144,7 +148,7 @@ TV_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_float]
 FLASH_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                   + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_float]
                   + [ctypes.c_int, ctypes.c_void_p])
-ARGTYPES = {"fp_ray": JOSEPH_ARGTYPES, "bp_matched": JOSEPH_ARGTYPES,
+ARGTYPES = {"fp_ray": FP_RAY_ARGTYPES, "bp_matched": BP_MATCHED_ARGTYPES,
             "bp_voxel": VOXEL_ARGTYPES, "tv_grad": TV_ARGTYPES,
             "flash_attention": FLASH_ARGTYPES}
 

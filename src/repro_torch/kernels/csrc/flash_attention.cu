@@ -20,18 +20,50 @@
 // one, a query row past S is never written).  The TPU block shapes and the
 // S % block == 0 restriction of the Pallas wrapper do not carry over.
 //
-// Design (a simple, correct first version; tensor cores, wgmma and TMA are
-// for a later change): one block of 256 threads per (b, h, 64-row query
-// tile).  The block stages its query tile, pre-scaled, in shared memory as
-// float32 and walks the key tiles of 64 rows in order, staging each K and V
-// tile as float32 in shared memory.  Thread (ty, tx) of the 16 x 16 grid
-// owns query rows 4 ty .. 4 ty + 3: it computes their scores against keys
-// tx + 16 j (j < 4) with FMAs over D, keeps their running max and sum in
-// registers (reduced over the 16 lanes of a row by shuffles), writes the
-// probabilities to shared memory, and accumulates output columns
-// tx + 16 c (c < D / 16) of the same rows.  Rows are padded by 4 floats so
-// that both the column reads of K and the row reads of V are free of bank
-// conflicts.  At D = 256 that is 212 KiB of shared memory, one block per SM.
+// Two kernels, chosen by the type alone (flash_attention_launch):
+//
+// * bfloat16: flash_tc_kernel, on the tensor cores.  One block of two
+//   warpgroups per (b, h, 128-row query tile); each warpgroup owns 64
+//   query rows.  Q and the bf16 K and V tiles of 64 keys come in by TMA,
+//   K and V into a ring of 2 stages at D = 256 and 4 below, each stage
+//   signalled full on an mbarrier; the warpgroup that releases a stage
+//   last refills it with the tile STAGES on, so loads run ahead of the
+//   products.  Per key tile a warpgroup runs S = Q K^T by wgmma with both
+//   operands in shared memory (128-byte swizzled, as TMA lays them out),
+//   the soft-cap, mask and online softmax on the S fragment in registers,
+//   and O += P V by wgmma with P in registers (the accumulator layout of S
+//   is the A-operand layout of P) and V read from shared memory as an
+//   MN-major operand.  The two warpgroups run independently, so one's
+//   softmax overlaps the other's products.  Shared memory at D = 256: Q
+//   64 KiB + 2 stages x (K + V) 64 KiB = 192 KiB.  P V is one m64nDk16
+//   product per 16 keys (V's subtiles are its MN atoms).  There is no
+//   producer warp: ptxas compiles the whole kernel under its launch
+//   bound's register cap (168 a thread at 384 threads, and also at 288,
+//   which it rounds up to whole warpgroups) whatever setmaxnreg grants at
+//   run time, while the D = 256 consumer needs about 215 (O alone is 128);
+//   with a producer warpgroup it spilled and ptxas serialised its wgmma
+//   (ptxas -v).
+//
+//   Numerics.  The products take bf16 operands and accumulate in fp32, as
+//   the reference's dots do.  P is fp32 in the reference; rounding it to
+//   bf16 (up to 2^-8 relative per weight) puts some per cent of the
+//   outputs of diffuse attention outside the bf16 band of one output ulp
+//   (tests/test_torch_flash_numerics.py shows it on the CPU), so P goes
+//   in as a hi/lo pair, P = bf16(P) + bf16(P - bf16(P)), two P V
+//   products (2^-16 per weight): 1.5 times the tensor-core work of one.
+//   l sums the fp32 P.  exp is ex2.approx of (x - m) log2(e); the cap's tanh is built as
+//   1 - 2 / (2^(2 x log2(e) / cap) + 1) from ex2.approx and rcp.approx
+//   (within two float32 ulps of the cap: 2.4e-5 of a score at 50), not
+//   tanh.approx, whose 2^-11 would move the scores by 0.02.  The final
+//   division and the roundings of q' and out are IEEE.
+//
+// * float32: flash_fwd_kernel, the first version, on the fp32 units.  One
+//   block of 256 threads per (b, h, 64-row query tile) stages the query
+//   tile, pre-scaled, and each key tile's K and V as float32 in shared
+//   memory (212 KiB at D = 256), computes q.k and p.v with FMAs over D and
+//   keeps m, l and the accumulator in registers; expf and tanhf are IEEE.
+//   It is the fp32 path of the decode-vs-prefill check, exact to fp32
+//   rounding.
 //
 // Skipped tiles: a block visits only the key tiles that hold at least one
 // unmasked (query, key) pair of its rows, [max(0, q0 - window + 1), q_last]
@@ -50,15 +82,17 @@
 // 989 TFLOP/s of dense bf16 tensor-core work; at gemma2-9b's prefill shape
 // (B 2, Hq 16, S 8192, D 256) that is 1.1 ms for a global layer and 0.83 ms
 // for a local one (window 4096).  The bytes (q, k, v read once, out written
-// once, 0.4 GB) take 0.12 ms: bound by operations.  This kernel runs on the
-// fp32 units (67 TFLOP/s), so it is far from that bound by design.
+// once, 0.4 GB) take 0.12 ms: bound by operations.  The hi/lo P costs the
+// tensor-core path 1.5 times that work; the fp32 path runs at 67 TFLOP/s.
 //
-// No --use_fast_math: expf and tanhf stay IEEE-accurate.  No atomics and a
-// fixed order of every sum, so every launch gives the same bits.
+// No atomics and a fixed order of every sum, so every launch gives the
+// same bits.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
-namespace {
+namespace simt {
 
 constexpr int kBQ = 64;        // query rows per block
 constexpr int kBK = 64;        // key rows per tile
@@ -66,46 +100,18 @@ constexpr int kThreads = 256;  // a 16 x 16 grid of threads
 constexpr int kLDP = kBK + 4;  // padded row of the probability tile
 constexpr float kNegInf = -1e30f;
 
-template <typename T>
-__device__ __forceinline__ float to_f32(T x);
-template <>
-__device__ __forceinline__ float to_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// x rounded to T's precision (round to nearest even), back in float
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_f32<T>(from_f32<T>(x));
-}
-
 template <int D>
 constexpr size_t smem_bytes() {
   return sizeof(float) *
          ((size_t)(kBQ + 2 * kBK) * (D + 4) + (size_t)kBQ * kLDP);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ out, int hq,
-                     int hkv, int s, float scale, int causal, int window,
-                     float softcap) {
+    flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ out,
+                     int hq, int hkv, int s, float scale, int causal,
+                     int window, float softcap) {
   static_assert(D % 16 == 0, "D must be a multiple of 16");
   constexpr int LD = D + 4;     // padded row of the Q, K and V tiles
   constexpr int CPT = D / 16;   // output columns per thread
@@ -123,13 +129,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   const size_t q_off = (size_t)bh * s * D;
   const size_t kv_off = ((size_t)b * hkv + h / (hq / hkv)) * s * D;
 
-  // q * scale rounded in T, as float32
-  const float sc = round_to<T>(scale);
+  const float sc = scale;
   for (int i = tid; i < kBQ * D; i += kThreads) {
     const int r = i / D, c = i % D;
     float x = 0.0f;
     if (q0 + r < s)
-      x = round_to<T>(to_f32<T>(q[q_off + (size_t)(q0 + r) * D + c]) * sc);
+      x = q[q_off + (size_t)(q0 + r) * D + c] * sc;
     qs[r * LD + c] = x;
   }
 
@@ -154,8 +159,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       float kx = 0.0f, vx = 0.0f;
       if (k0 + r < s) {
         const size_t g = kv_off + (size_t)(k0 + r) * D + c;
-        kx = to_f32<T>(k[g]);
-        vx = to_f32<T>(v[g]);
+        kx = k[g];
+        vx = v[g];
       }
       ks[r * LD + c] = kx;
       vs[r * LD + c] = vx;
@@ -255,11 +260,534 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int qi = q0 + ty * 4 + i;
     if (qi >= s) continue;
     const float denom = fmaxf(l[i], 1e-30f);
-    T* row = out + q_off + (size_t)qi * D;
+    float* row = out + q_off + (size_t)qi * D;
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) row[tx + 16 * c] = from_f32<T>(acc[i][c] / denom);
+    for (int c = 0; c < CPT; ++c) row[tx + 16 * c] = acc[i][c] / denom;
   }
 }
+
+}  // namespace simt
+
+
+namespace tc {
+
+constexpr int kBQ = 128;       // query rows per block: two consumers of 64
+constexpr int kBK = 64;        // key rows per tile
+constexpr int kThreads = 256;  // two warpgroups of 64 query rows each
+constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared-memory geometry of head dim D.  Every 64-row tile of Q, K or V is
+// stored as D / W subtiles of 64 rows x W columns, each row W bf16 (128
+// bytes for W = 64, 64 bytes for W = 32), swizzled by TMA in 8-row atoms.
+template <int D>
+struct Cfg {
+  static constexpr int W = D >= 64 ? 64 : 32;     // columns of a subtile
+  static constexpr int NSUB = D / W;              // subtiles of a tile
+  static constexpr int RB = 2 * W;                // bytes of a subtile row
+  static constexpr int SUB = 64 * RB;             // bytes of a subtile
+  static constexpr int ATOM = 8 * RB;             // bytes of a swizzle atom
+  static constexpr int LAYOUT = W == 64 ? 1 : 2;  // wgmma: 128B / 64B swizzle
+  static constexpr int STAGES = D == 256 ? 2 : 4;
+  static constexpr int Q_BYTES = 2 * NSUB * SUB;  // two halves of 64 rows
+  static constexpr int KV_BYTES = 2 * NSUB * SUB; // K and V of one tile
+  static constexpr int SMEM =
+      1024 + Q_BYTES + STAGES * KV_BYTES + 8 * (1 + STAGES);
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` of barrier `bar` has completed.
+// A wait that lasts 2^34 cycles (about 10 s) can only be a fault of the
+// kernel: it traps, so that the launch fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  const long long t0 = clock64();
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > (1ll << 34)) __trap();
+  }
+}
+
+// TMA: the box at (c0, c1, c2) of `map` into shared memory at dst,
+// completing `bar`'s transaction count.  Coordinates past the tensor's
+// end read as zeros.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor: start address, leading and stride byte
+// offsets, swizzle.  The stride offset is that of the 8-row atoms along K;
+// the leading one that of the W-column subtiles along N, for an MN-major
+// operand wider than one subtile (else unused: it is given the atom's).
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, int layout) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32) |
+         ((uint64_t)layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keep the compiler from moving reads of an accumulator above the wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ float rcp(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// D (64 x 64, fp32) += A (64 x 16) * B (64 x 16)^T, both bf16 K-major in shared
+// memory; D is zeroed first when scale_d is 0.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 64, fp32) += A (64 x 16, bf16 in registers) * B (16 x 64, bf16
+// MN-major in shared memory).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 32, fp32) += A (64 x 16, bf16 in registers) * B (16 x 32, bf16
+// MN-major in shared memory).
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 128, fp32) += A (64 x 16, bf16 in registers) * B (16 x 128, bf16
+// MN-major in shared memory).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 256, fp32) += A (64 x 16, bf16 in registers) * B (16 x 256, bf16
+// MN-major in shared memory).
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// O (64 x D) += P (64 x 16, registers) * V (16 x D, shared memory, its
+// W-column subtiles the MN atoms)
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (D == 256) {
+    wgmma_rs_n256(o, a, db);
+  } else if constexpr (D == 128) {
+    wgmma_rs_n128(o, a, db);
+  } else if constexpr (D == 64) {
+    wgmma_rs_n64(o, a, db);
+  } else {
+    wgmma_rs_n32(o, a, db);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    __nv_bfloat16* __restrict__ out, int hq, int hkv, int s,
+                    float scale, int causal, int window, float softcap) {
+  using C = Cfg<D>;
+  constexpr int W = C::W, NSUB = C::NSUB;
+  extern __shared__ uint8_t smem_raw[];
+  // 1024-byte alignment: the 128-byte swizzle repeats every 8 rows
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* const gbase = smem_raw + (base - raw);
+  const uint32_t q_s = base;
+  const uint32_t kv_s = base + C::Q_BYTES;
+  const uint32_t bar_q = kv_s + C::STAGES * C::KV_BYTES;
+  auto bar_full = [&](int st) { return bar_q + 8u * (1 + st); };
+  auto k_sub = [&](int st, int sub) {
+    return kv_s + st * C::KV_BYTES + sub * C::SUB;
+  };
+  auto v_sub = [&](int st, int sub) {
+    return kv_s + st * C::KV_BYTES + (NSUB + sub) * C::SUB;
+  };
+  auto q_sub = [&](int half, int sub) {
+    return q_s + (half * NSUB + sub) * C::SUB;
+  };
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;  // heaviest first
+  const int bh = blockIdx.y;                          // b * hq + h
+  const int kvh = (bh / hq) * hkv + (bh % hq) / (hq / hkv);
+  // the key tiles holding an unmasked pair of this block's rows
+  const int q_last = min(q0 + kBQ, s) - 1;
+  const int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int k_end = causal ? q_last + 1 : s;
+  const int t0 = k_begin / kBK;
+  const int n_tiles = (k_end + kBK - 1) / kBK - t0;
+
+  // Loads: thread 0 issues Q and the first STAGES key tiles; afterwards the
+  // warpgroup that releases a stage last refills it with the tile STAGES on.
+  __shared__ int released[C::STAGES];
+  auto load_tile = [&](int t) {
+    const int st = t % C::STAGES;
+    mbar_expect_tx(bar_full(st), C::KV_BYTES);
+    const int row = (t0 + t) * kBK;
+    for (int sub = 0; sub < NSUB; ++sub) {
+      tma_load_3d(k_sub(st, sub), &tk, bar_full(st), sub * W, row, kvh);
+      tma_load_3d(v_sub(st, sub), &tv, bar_full(st), sub * W, row, kvh);
+    }
+  };
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int st = 0; st < C::STAGES; ++st) {
+      mbar_init(bar_full(st), 1);
+      released[st] = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(bar_q, C::Q_BYTES);
+    for (int half = 0; half < 2; ++half)
+      for (int sub = 0; sub < NSUB; ++sub)
+        tma_load_3d(q_sub(half, sub), &tq, bar_q, sub * W, q0 + 64 * half, bh);
+    for (int t = 0; t < min(n_tiles, C::STAGES); ++t) load_tile(t);
+  }
+  __syncthreads();
+
+  // warpgroup `half` owns rows rb .. rb + 63
+  const int half = threadIdx.x / 128;
+  const int ct = threadIdx.x % 128;
+  const int warp = ct / 32, lane = ct % 32;
+  const int rb = q0 + 64 * half;
+  // this thread's rows r0 and r0 + 8 of the fragment; its columns are
+  // cq, cq + 1 of every 8-column chunk
+  const int r0 = rb + 16 * warp + lane / 4;
+  const int cq = 2 * (lane % 4);
+
+  mbar_wait(bar_q, 0);
+  {
+    // q * scale rounded in bf16, in place (elementwise: the swizzle is
+    // immaterial); then visible to the tensor cores' reads
+    const float sc = __bfloat162float(__float2bfloat16_rn(scale));
+    uint4* qh = reinterpret_cast<uint4*>(gbase + half * (C::Q_BYTES / 2));
+    for (int i = ct; i < 64 * D / 8; i += 128) {
+      uint4 w = qh[i];
+      uint32_t* u = reinterpret_cast<uint32_t*>(&w);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f =
+            __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u[e]));
+        u[e] = bf16x2_bits(__floats2bfloat162_rn(f.x * sc, f.y * sc));
+      }
+      qh[i] = w;
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + half) : "memory");
+  }
+
+  // O: this thread's D / 2 accumulators; o[4 J + 2 r + c] is row
+  // r0 + 8 r, column 8 J + cq + c
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
+  const float cap_k = softcap > 0.0f ? 2.0f * kLog2e / softcap : 0.0f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t % C::STAGES;
+    mbar_wait(bar_full(st), (t / C::STAGES) & 1);
+    const int k0 = (t0 + t) * kBK;
+
+    // S = Q K^T: 64 rows x 64 keys, fp32
+    float sc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = 0.0f;
+    wgmma_fence();
+#pragma unroll
+    for (int sub = 0; sub < NSUB; ++sub) {
+      const uint64_t dq =
+          make_desc(q_sub(half, sub), C::ATOM, C::ATOM, C::LAYOUT);
+      const uint64_t dk =
+          make_desc(k_sub(st, sub), C::ATOM, C::ATOM, C::LAYOUT);
+#pragma unroll
+      for (int kk = 0; kk < W / 16; ++kk)  // 16 columns = 32 bytes = 2 units
+        wgmma_ss_n64(sc, dq + 2 * kk, dk + 2 * kk, (sub | kk) != 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+
+    // soft-cap, mask, online softmax.  sc[i] is row r0 + 8 ((i >> 1) & 1),
+    // key k0 + 8 (i >> 2) + cq + (i & 1)
+    const bool need_mask = k0 + kBK > s || (causal && k0 + kBK - 1 > rb) ||
+                           (window > 0 && k0 <= rb + 63 - window);
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      float x = sc[i];
+      if (softcap > 0.0f)
+        x = softcap * (1.0f - 2.0f * rcp(ex2(x * cap_k) + 1.0f));
+      if (need_mask) {
+        const int row = r0 + 8 * ((i >> 1) & 1);
+        const int col = k0 + 8 * (i >> 2) + cq + (i & 1);
+        bool keep = col < s;
+        if (causal) keep = keep && col <= row;
+        if (window > 0) keep = keep && col > row - window;
+        if (!keep) x = kNegInf;
+      }
+      sc[i] = x;
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
+    }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      corr[r] = ex2((m[r] - m_new) * kLog2e);
+      m[r] = m_new;
+      l[r] *= corr[r];
+    }
+    // P as a bf16 hi/lo pair in the A-operand layout: register e of k-step
+    // kk holds the pair sc[8 kk + 2 e], sc[8 kk + 2 e + 1]
+    uint32_t p_hi[4][4], p_lo[4][4];
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int r = (i >> 1) & 1;
+      const float p0 = ex2((sc[i] - m[r]) * kLog2e);
+      const float p1 = ex2((sc[i + 1] - m[r]) * kLog2e);
+      l[r] += p0 + p1;
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(p0, p1);
+      const float2 hf = __bfloat1622float2(hi);
+      p_hi[i / 8][(i % 8) / 2] = bf16x2_bits(hi);
+      p_lo[i / 8][(i % 8) / 2] =
+          bf16x2_bits(__floats2bfloat162_rn(p0 - hf.x, p1 - hf.y));
+    }
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+
+    // O += P V: per 16 keys (16 rows of V: whole atoms) one m64nDk16
+    // product for each half of P
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      const uint64_t dv = make_desc(v_sub(st, 0) + kk * 16 * C::RB, C::SUB,
+                                    C::ATOM, C::LAYOUT);
+      wgmma_pv<D>(o, p_hi[kk], dv);
+      wgmma_pv<D>(o, p_lo[kk], dv);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(o);
+    // the wait above saw this warpgroup's reads of stage st complete
+    if (ct == 0 && t + C::STAGES < n_tiles) __threadfence_block();
+    if (ct == 0 && t + C::STAGES < n_tiles &&
+        atomicAdd(&released[st], 1) == 1) {
+      released[st] = 0;
+      load_tile(t + C::STAGES);
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  const size_t q_off = (size_t)bh * s * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    if (row >= s) continue;
+    const float denom = fmaxf(l[r], 1e-30f);
+    __nv_bfloat16* orow = out + q_off + (size_t)row * D;
+#pragma unroll
+    for (int c8 = 0; c8 < D / 8; ++c8)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * c8 + cq) =
+          __floats2bfloat162_rn(o[4 * c8 + 2 * r] / denom,
+                                o[4 * c8 + 2 * r + 1] / denom);
+  }
+}
+
+}  // namespace tc
+
+namespace {
 
 // Make `device` current for this runtime before a launch (the library
 // carries its own static CUDA runtime; the context is the device's primary
@@ -271,43 +799,121 @@ cudaError_t use_device(int device) {
   return cur == device ? cudaSuccess : cudaSetDevice(device);
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int b, int hq, int hkv, int s, float scale, int causal,
-                   int window, float softcap, cudaStream_t stream) {
-  const size_t bytes = smem_bytes<D>();
+template <int D>
+cudaError_t launch_simt(const void* q, const void* k, const void* v,
+                        void* out, int b, int hq, int hkv, int s, float scale,
+                        int causal, int window, float softcap,
+                        cudaStream_t stream) {
+  const size_t bytes = simt::smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      simt::flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((s + kBQ - 1) / kBQ, b * hq);
-  flash_fwd_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, hq, hkv, s, scale,
-      causal, window, softcap);
+  const dim3 grid((s + simt::kBQ - 1) / simt::kBQ, b * hq);
+  simt::flash_fwd_kernel<D><<<grid, simt::kThreads, bytes, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)out, hq, hkv,
+      s, scale, causal, window, softcap);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_d(int d, const void* q, const void* k, const void* v,
-                     void* out, int b, int hq, int hkv, int s, float scale,
-                     int causal, int window, float softcap,
-                     cudaStream_t stream) {
-  switch (d) {
-    case 32: return launch<T, 32>(q, k, v, out, b, hq, hkv, s, scale, causal, window, softcap, stream);
-    case 64: return launch<T, 64>(q, k, v, out, b, hq, hkv, s, scale, causal, window, softcap, stream);
-    case 128: return launch<T, 128>(q, k, v, out, b, hq, hkv, s, scale, causal, window, softcap, stream);
-    case 256: return launch<T, 256>(q, k, v, out, b, hq, hkv, s, scale, causal, window, softcap, stream);
-    default: return cudaErrorInvalidValue;
+// cuTensorMapEncodeTiled from the driver, found through the runtime (no
+// link against libcuda).
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+cudaError_t encode_fn(EncodeTiled* fn) {
+  static EncodeTiled cached = nullptr;
+  if (cached == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || p == nullptr)
+      return cudaErrorSymbolNotFound;
+    cached = reinterpret_cast<EncodeTiled>(p);
   }
+  *fn = cached;
+  return cudaSuccess;
+}
+
+// (heads, s, d) bf16, contiguous, read in boxes of 64 rows x w columns
+cudaError_t make_map(CUtensorMap* map, const void* ptr, int heads, int s,
+                     int d, int w) {
+  EncodeTiled encode;
+  const cudaError_t err = encode_fn(&encode);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)s, (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)s * d * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)w, 64, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      w == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int D>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
+                      int b, int hq, int hkv, int s, float scale, int causal,
+                      int window, float softcap, cudaStream_t stream) {
+  using C = tc::Cfg<D>;
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out)) %
+          16 != 0)
+    return cudaErrorMisalignedAddress;
+  CUtensorMap mq, mk, mv;
+  cudaError_t err = make_map(&mq, q, b * hq, s, D, C::W);
+  if (err == cudaSuccess) err = make_map(&mk, k, b * hkv, s, D, C::W);
+  if (err == cudaSuccess) err = make_map(&mv, v, b * hkv, s, D, C::W);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(tc::flash_tc_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             C::SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((s + tc::kBQ - 1) / tc::kBQ, b * hq);
+  tc::flash_tc_kernel<D><<<grid, tc::kThreads, C::SMEM, stream>>>(
+      mq, mk, mv, (__nv_bfloat16*)out, hq, hkv, s, scale, causal, window,
+      softcap);
+  return cudaGetLastError();
+}
+
+#define FLASH_DISPATCH_D(fn)                                              \
+  switch (d) {                                                            \
+    case 32: return fn<32>(q, k, v, out, b, hq, hkv, s, scale, causal,    \
+                           window, softcap, st);                          \
+    case 64: return fn<64>(q, k, v, out, b, hq, hkv, s, scale, causal,    \
+                           window, softcap, st);                          \
+    case 128: return fn<128>(q, k, v, out, b, hq, hkv, s, scale, causal,  \
+                             window, softcap, st);                        \
+    case 256: return fn<256>(q, k, v, out, b, hq, hkv, s, scale, causal,  \
+                             window, softcap, st);                        \
+    default: return cudaErrorInvalidValue;                                \
+  }
+
+cudaError_t launch(int d, int dtype, const void* q, const void* k,
+                   const void* v, void* out, int b, int hq, int hkv, int s,
+                   float scale, int causal, int window, float softcap,
+                   cudaStream_t st) {
+  if (dtype == 0) FLASH_DISPATCH_D(launch_simt)
+  if (dtype == 1) FLASH_DISPATCH_D(launch_tc)
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // q (b, hq, s, d), k and v (b, hkv, s, d), out like q; contiguous, on
-// `device`, of one type: dtype 0 float32, 1 bfloat16.  d is 32, 64, 128 or
-// 256; hq a multiple of hkv.  scale is 1/sqrt(d) as float (the kernel rounds
-// it to the type); window <= 0 means no window, softcap <= 0 no soft-cap.
-// Returns cudaGetLastError().
+// `device`, of one type: dtype 0 float32 (the SIMT kernel), 1 bfloat16 (the
+// tensor-core kernel; pointers 16-byte aligned).  d is 32, 64, 128 or 256;
+// hq a multiple of hkv.  scale is 1/sqrt(d) as float (the bf16 kernel
+// rounds it to bf16); window <= 0 means no window, softcap <= 0 no
+// soft-cap.  Returns cudaGetLastError() or the first error met.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int b, int hq,
                                       int hkv, int s, int d, int dtype,
@@ -318,14 +924,6 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   if (err != cudaSuccess) return (int)err;
   if (b <= 0 || s <= 0 || hkv <= 0 || hq % hkv != 0)
     return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0)
-    err = launch_d<float>(d, q, k, v, out, b, hq, hkv, s, scale, causal,
-                          window, softcap, st);
-  else if (dtype == 1)
-    err = launch_d<__nv_bfloat16>(d, q, k, v, out, b, hq, hkv, s, scale,
-                                  causal, window, softcap, st);
-  else
-    err = cudaErrorInvalidValue;
-  return (int)err;
+  return (int)launch(d, dtype, q, k, v, out, b, hq, hkv, s, scale, causal,
+                     window, softcap, (cudaStream_t)stream);
 }

@@ -1,17 +1,20 @@
 // Shared index and weight arithmetic of the Joseph projector pair.
 //
-// fp_ray.cu (A) and bp_matched.cu (the exact transpose A^T) both call
-// joseph_sample() below, and nothing else, to turn one (angle, detector
-// pixel (v, u), marching plane x) tuple into the ray's sample position and
-// its interpolation taps.  Every line is the fp32 expression of the Pallas
-// reference (src/repro/kernels/fp_ray.py:86-134), written with the
-// round-to-nearest intrinsics (__fadd_rn, __fmul_rn, __fdiv_rn, __fsqrt_rn)
-// so that the compiler can neither contract nor reorder it: the two
-// kernels therefore see bit-identical taps and weights, which is what
-// keeps <A x, y> == <x, A^T y> to fp32 summation tolerance
+// fp_ray.cu (A) calls joseph_sample() below, and bp_matched.cu (the exact
+// transpose A^T) calls its pieces joseph_u() (what depends on the angle, u
+// and the plane x), joseph_v_tap() (the z tap of one pixel row v),
+// joseph_dz() and joseph_seg() (the path length per plane), and nothing
+// else, to turn one (angle, detector pixel (v, u), marching plane x) tuple
+// into the ray's sample position and its interpolation taps.  Every line
+// is the fp32 expression of the Pallas reference
+// (src/repro/kernels/fp_ray.py:86-134), written with the round-to-nearest
+// intrinsics (__fadd_rn, __fmul_rn, __fdiv_rn, __fsqrt_rn) so that the
+// compiler can neither contract nor reorder it: the two kernels therefore
+// see bit-identical taps and weights, which is what keeps
+// <A x, y> == <x, A^T y> to fp32 summation tolerance
 // (src/repro/kernels/bp_matched.py:45-49).
 //
-// The function is force-inlined.  A caller that reads only some fields
+// The functions are force-inlined.  A caller that reads only some fields
 // gets the rest removed as dead code, and a loop that varies only the
 // plane x gets the per-ray terms hoisted out of the loop; the values
 // themselves never change with the call site.
@@ -54,44 +57,103 @@ __device__ __forceinline__ AngleConsts load_angle(
   return k;
 }
 
-// Everything both kernels need about one ray at one marching plane.
-struct JosephSample {
+// The part of a sample that depends on (angle, u, plane x) alone: the
+// in-plane (y) tap and everything the z tap and seg need from u.
+struct JosephU {
   float s_par;   // ray parameter at the plane (0 at the source, 1 at the pixel)
-  float fj, fk;  // fractional y index, slab-local fractional z index
-  int j0i, k0i;  // floor of fj, fk
-  float wj, wk;  // fj - j0, fk - k0
+  float fj;      // fractional y index
+  int j0i;       // floor of fj
+  float wj;      // fj - j0
   bool mask;     // 0 < s_par <= 1: the sample lies between source and pixel
-  float seg;     // path length per marching plane, |d| / |d_x| * dx
+  float dxy2;    // d_x^2 + d_y^2, the first two terms of |d|^2
+  float adx;     // max(|d_x|, 1e-9), the divisor of seg
 };
 
-__device__ __forceinline__ JosephSample joseph_sample(
-    const AngleConsts& c, int iu, int iv, float x, const JosephGeom& g) {
-  // detector coordinates of the pixel centre
+// The part that depends on (angle, u, v, plane x): the z tap and seg.
+struct JosephV {
+  float fk;      // slab-local fractional z index
+  int k0i;       // floor of fk
+  float wk;      // fk - k0
+  float d_z;     // v - sz, the ray's z direction (for seg)
+};
+
+// Everything both kernels need about one ray at one marching plane.
+struct JosephSample {
+  float s_par, fj, fk;
+  int j0i, k0i;
+  float wj, wk;
+  bool mask;
+  float seg;
+};
+
+__device__ __forceinline__ JosephU joseph_u(const AngleConsts& c, int iu,
+                                            float x, const JosephGeom& g) {
+  // detector u of the pixel centre; ray direction (pixel minus source)
   const float u = __fadd_rn(__fmul_rn(__fsub_rn((float)iu, g.cu), g.du), g.offu);
-  const float v = __fadd_rn(__fmul_rn(__fsub_rn((float)iv, g.cv), g.dv), g.offv);
-  // ray direction: pixel minus source
   const float d_x = __fsub_rn(__fadd_rn(c.dcx, __fmul_rn(u, c.eux)), c.sx);
   const float d_y = __fsub_rn(__fadd_rn(c.dcy, __fmul_rn(u, c.euy)), c.sy);
-  const float d_z = __fsub_rn(v, c.sz);
-  const float norm = __fsqrt_rn(__fadd_rn(
-      __fadd_rn(__fmul_rn(d_x, d_x), __fmul_rn(d_y, d_y)), __fmul_rn(d_z, d_z)));
   const float ad_x = fabsf(d_x);
-  JosephSample s;
-  s.seg = __fmul_rn(__fdiv_rn(norm, fmaxf(ad_x, 1e-9f)), g.dx);
+  JosephU r;
+  r.dxy2 = __fadd_rn(__fmul_rn(d_x, d_x), __fmul_rn(d_y, d_y));
+  r.adx = fmaxf(ad_x, 1e-9f);
   const float inv_dx = __fdiv_rn(1.0f, ad_x < 1e-9f ? 1e-9f : d_x);
   // sample at the plane
-  s.s_par = __fmul_rn(__fsub_rn(x, c.sx), inv_dx);
-  const float yw = __fadd_rn(c.sy, __fmul_rn(s.s_par, d_y));
-  s.fj = __fadd_rn(__fdiv_rn(__fsub_rn(yw, g.offy), g.dy), g.cy);
-  const float zw = __fsub_rn(__fadd_rn(c.sz, __fmul_rn(s.s_par, d_z)), g.offz);
-  s.fk = __fsub_rn(__fadd_rn(__fdiv_rn(zw, g.dz), g.cz), g.z0);
-  const float j0 = floorf(s.fj);
-  const float k0 = floorf(s.fk);
-  s.wj = __fsub_rn(s.fj, j0);
-  s.wk = __fsub_rn(s.fk, k0);
-  s.j0i = (int)j0;
-  s.k0i = (int)k0;
-  s.mask = (s.s_par > 0.0f) && (s.s_par <= 1.0f);
+  r.s_par = __fmul_rn(__fsub_rn(x, c.sx), inv_dx);
+  const float yw = __fadd_rn(c.sy, __fmul_rn(r.s_par, d_y));
+  r.fj = __fadd_rn(__fdiv_rn(__fsub_rn(yw, g.offy), g.dy), g.cy);
+  const float j0 = floorf(r.fj);
+  r.wj = __fsub_rn(r.fj, j0);
+  r.j0i = (int)j0;
+  r.mask = (r.s_par > 0.0f) && (r.s_par <= 1.0f);
+  return r;
+}
+
+// The ray's z direction for pixel row iv: detector v minus source z.
+__device__ __forceinline__ float joseph_dz(const AngleConsts& c, int iv,
+                                           const JosephGeom& g) {
+  const float v = __fadd_rn(__fmul_rn(__fsub_rn((float)iv, g.cv), g.dv), g.offv);
+  return __fsub_rn(v, c.sz);
+}
+
+// z tap of pixel row iv on the ray whose u-part has parameter s_par.
+__device__ __forceinline__ JosephV joseph_v_tap(const AngleConsts& c,
+                                                float s_par, int iv,
+                                                const JosephGeom& g) {
+  const float d_z = joseph_dz(c, iv, g);
+  const float zw = __fsub_rn(__fadd_rn(c.sz, __fmul_rn(s_par, d_z)), g.offz);
+  JosephV r;
+  r.fk = __fsub_rn(__fadd_rn(__fdiv_rn(zw, g.dz), g.cz), g.z0);
+  const float k0 = floorf(r.fk);
+  r.wk = __fsub_rn(r.fk, k0);
+  r.k0i = (int)k0;
+  r.d_z = d_z;
+  return r;
+}
+
+// seg of the ray from the u-part's dxy2 and adx and the v tap's d_z:
+// |d| / max(|d_x|, 1e-9) * dx.
+__device__ __forceinline__ float joseph_seg(float dxy2, float adx, float d_z,
+                                            const JosephGeom& g) {
+  const float norm = __fsqrt_rn(__fadd_rn(dxy2, __fmul_rn(d_z, d_z)));
+  return __fmul_rn(__fdiv_rn(norm, adx), g.dx);
+}
+
+// The whole sample: the u-part, the z tap and seg.  fp_ray calls this;
+// bp_matched calls its three pieces, so the two see the same bits.
+__device__ __forceinline__ JosephSample joseph_sample(
+    const AngleConsts& c, int iu, int iv, float x, const JosephGeom& g) {
+  const JosephU su = joseph_u(c, iu, x, g);
+  const JosephV sv = joseph_v_tap(c, su.s_par, iv, g);
+  JosephSample s;
+  s.s_par = su.s_par;
+  s.fj = su.fj;
+  s.j0i = su.j0i;
+  s.wj = su.wj;
+  s.mask = su.mask;
+  s.fk = sv.fk;
+  s.k0i = sv.k0i;
+  s.wk = sv.wk;
+  s.seg = joseph_seg(su.dxy2, su.adx, sv.d_z, g);
   return s;
 }
 

@@ -13,18 +13,23 @@ float32 softmax and the output in q's type.  Any S is taken: the Pallas
 wrapper's ``S % block == 0`` is a TPU block-shape restriction.  Queries and
 keys have one length (self-attention, as every caller in the reference).
 
-* :func:`flash_attention_cuda` launches the hand-written CUDA kernel
+* :func:`flash_attention_cuda` launches a hand-written CUDA kernel
   (``csrc/flash_attention.cu``, replacing the Pallas ``_flash_kernel``) on
-  CUDA tensors, and raises for anything else;
+  CUDA tensors, and raises for anything else.  The kernel is chosen by the
+  type alone: bfloat16 runs the tensor-core kernel (wgmma on bf16
+  operands with fp32 accumulation, TMA loads of K and V into a ring of
+  stages, P·V on a bf16 hi/lo pair of P), float32 the SIMT kernel on the
+  fp32 units.  A launch that fails raises; nothing falls back;
 * :func:`flash_attention_plain` is the same function in plain PyTorch, a
   dense softmax as ``kernels/ref.py::flash_attention_ref`` (the reference's
   oracle), in query chunks whose score block stays near
   :data:`SCORE_BYTES`: the oracle of the kernel, and what runs on the CPU;
 * :func:`flash_attention` picks between them by the tensors' device alone.
 
-``flash_attention_cuda.launches`` counts kernel launches and
-``flash_attention_plain.calls`` calls of the plain version (see
-:func:`repro_torch.kernels.reset_counters`).
+``flash_attention_cuda.launches`` counts kernel launches of either kernel,
+``flash_attention_cuda.wgmma_launches`` those of the bfloat16 tensor-core
+kernel among them, and ``flash_attention_plain.calls`` calls of the plain
+version (see :func:`repro_torch.kernels.counters`).
 """
 
 from __future__ import annotations
@@ -131,8 +136,9 @@ flash_attention_plain.calls = 0
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True, window: Optional[int] = None,
                          softcap: Optional[float] = None) -> torch.Tensor:
-    """Launch the CUDA attention kernel on CUDA ``q``, ``k``, ``v``; see
-    :func:`flash_attention_plain` for the contract."""
+    """Launch the CUDA attention kernel of q's type (the tensor-core one
+    for bfloat16, the SIMT one for float32) on CUDA ``q``, ``k``, ``v``;
+    see :func:`flash_attention_plain` for the contract."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_cuda(t, name)
     _check(q, k, v, window, softcap)
@@ -142,6 +148,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device != k.device or q.device != v.device:
         raise ValueError("q, k and v must lie on one device")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("the tensor-core kernel reads q, k, v by TMA: they "
+                         "must start 16-byte aligned")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -156,10 +165,12 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError("flash_attention kernel launch failed: CUDA error "
                            f"{rc}")
     flash_attention_cuda.launches += 1
+    flash_attention_cuda.wgmma_launches += int(q.dtype == torch.bfloat16)
     return out
 
 
 flash_attention_cuda.launches = 0
+flash_attention_cuda.wgmma_launches = 0
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -163,10 +163,11 @@ def _fp_plain(vol, geo, angles, z0):
 # the CUDA kernel's wrapper
 # --------------------------------------------------------------------------
 
-def launch(name: str, inp: torch.Tensor, consts: torch.Tensor,
-           xc: torch.Tensor, out: torch.Tensor, geo: ConeGeometry,
+def launch(name: str, lead: tuple, consts: torch.Tensor, geo: ConeGeometry,
            nz_slab: int, z0) -> None:
-    """Launch kernel ``name`` on PyTorch's current stream; raise on a
+    """Launch Joseph kernel ``name`` on PyTorch's current stream: its C
+    entry takes ``lead`` (the addresses of its tensors, then any counts of
+    its own), then ``consts``'s angle count and the geometry.  Raise on a
     nonzero ``cudaGetLastError()``."""
     nz, ny, nx = geo.n_voxel
     nv, nu = geo.n_detector
@@ -174,11 +175,10 @@ def launch(name: str, inp: torch.Tensor, consts: torch.Tensor,
     dv, du = geo.d_detector
     offz, offy, _ = geo.off_origin
     offv, offu = geo.off_detector
-    dev = inp.device
+    dev = consts.device
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = build.entry(name)(
-        inp.data_ptr(), consts.data_ptr(), xc.data_ptr(), out.data_ptr(),
-        consts.shape[0], nz, ny, nx, nz_slab, nv, nu,
+        *lead, consts.shape[0], nz, ny, nx, nz_slab, nv, nu,
         dz, dy, dx, dv, du, offz, offy, offv, offu, float(z0),
         dev.index if dev.index is not None else torch.cuda.current_device(),
         stream)
@@ -213,8 +213,9 @@ def fp_ray_cuda(vol: torch.Tensor, geo: ConeGeometry, angles,
         return out
     # marching-plane layout (Nx, nz_slab, Ny), as fp_ray.py:176
     vol_t = vol.permute(2, 0, 1).contiguous()
-    launch("fp_ray", vol_t, consts, plane_centers(geo, vol.device), out,
-           geo, vol.shape[0], z0)
+    xc = plane_centers(geo, vol.device)
+    launch("fp_ray", (vol_t.data_ptr(), consts.data_ptr(), xc.data_ptr(),
+                      out.data_ptr()), consts, geo, vol.shape[0], z0)
     fp_ray_cuda.launches += 1
     return out
 
