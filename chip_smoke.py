@@ -16,7 +16,10 @@ CT paths run at N=512 (512^3 volume, 512^2 detector, 512 angles):
 * FISTA-TV on ``fp_ray`` and ``bp_matched`` with the ROF prox, in-core.
 
 ``bp_matched`` reads each voxel's taps off per-plane tables in shared
-memory.
+memory; ``bp_voxel`` reads its taps off a window of each angle's
+projection staged in shared memory by cp.async; ``fp_ray`` computes each
+(u, plane)'s u-part once for a thread's rows and skips the planes its rows
+cannot reach in a slab.
 
 The LM serving path runs gemma2-9b at full width and depth (42 layers,
 bf16, seeded random weights made on the card):
@@ -412,6 +415,52 @@ def phase_bp_voxel_checks(n: int, n_angles: int):
                 if not torch.equal(got, bp_voxel_cuda(y, geo, a, weight, z0,
                                                       planes)):
                     raise AssertionError(f"{tag}: repeat launch differs")
+    torch.cuda.synchronize()
+    log("  repeat launches bit-identical")
+
+
+#: a geometry whose bp_voxel windows are taller than a buffer for some
+#: tiles and angles (detector rows of 0.92 mm under 1 mm voxels), with large
+#: detector offsets: it drives bp_voxel's global-read path beside its
+#: staged one (as tests/test_torch_projector_windows.py computes), and
+#: fp_ray's taps off the detector's centre
+OVERFLOW_GEO = dict(DSD=1536.0, DSO=1000.0, n_voxel=(40, 36, 44),
+                    s_voxel=(40.0, 36.0, 44.0), n_detector=(76, 41),
+                    s_detector=(70.0, 82.0), off_detector=(9.0, -13.0))
+
+
+def phase_overflow_checks():
+    """fp_ray and bp_voxel against their plain versions on OVERFLOW_GEO
+    (whole volume and a slab), repeat launches bit-identical."""
+    import torch
+    from repro_torch.core.geometry import (ConeGeometry, circular_angles,
+                                           dominant_axis_mask)
+    from repro_torch.kernels.bp_voxel import bp_voxel_cuda, bp_voxel_plain
+    from repro_torch.kernels.fp_ray import fp_ray_cuda, fp_ray_plain
+    geo = ConeGeometry(**OVERFLOW_GEO)
+    log(f"== fp_ray and bp_voxel on a geometry past bp_voxel's window "
+        f"buffers: {OVERFLOW_GEO}")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    ang = circular_angles(40)
+    a_x = torch.from_numpy(ang[dominant_axis_mask(ang)]).cuda()
+    a = torch.from_numpy(ang).cuda()
+    vol = torch.randn(geo.n_voxel, generator=gen, device="cuda")
+    y = torch.randn((a.numel(),) + geo.n_detector, generator=gen,
+                    device="cuda")
+    for part, z0, planes in (("full", 0, geo.n_voxel[0]), ("slab", 7, 29)):
+        slab = vol[z0:z0 + planes].contiguous()
+        got = fp_ray_cuda(slab, geo, a_x, z0=z0)
+        check_close(f"fp_ray {part}", got, fp_ray_plain(slab, geo, a_x, z0))
+        if not torch.equal(got, fp_ray_cuda(slab, geo, a_x, z0=z0)):
+            raise AssertionError(f"fp_ray {part}: repeat launch differs")
+        for weight in ("fdk", "pmatched", "none"):
+            got = bp_voxel_cuda(y, geo, a, weight, z0, planes)
+            check_close(f"bp_voxel {weight} {part}", got,
+                        bp_voxel_plain(y, geo, a, weight, z0, planes))
+            if not torch.equal(got, bp_voxel_cuda(y, geo, a, weight, z0,
+                                                  planes)):
+                raise AssertionError(f"bp_voxel {weight} {part}: repeat "
+                                     "launch differs")
     torch.cuda.synchronize()
     log("  repeat launches bit-identical")
 
@@ -1238,12 +1287,14 @@ def main(argv=None) -> int:
     if args.quick:
         phase_kernel_checks(64, 48)
         phase_bp_voxel_checks(64, 48)
+        phase_overflow_checks()
         phase_tv_grad_checks(64)
         phase_flash_checks()
         log(f"quick run passed in {time.perf_counter() - t_start:.0f}s")
         return 0
     phase_kernel_checks(128, 96)
     phase_bp_voxel_checks(128, 96)
+    phase_overflow_checks()
     phase_tv_grad_checks(128)
     phase_flash_checks()
     n, n_angles = 512, 512
