@@ -19,7 +19,8 @@ CT paths run at N=512 (512^3 volume, 512^2 detector, 512 angles):
 memory; ``bp_voxel`` reads its taps off a window of each angle's
 projection staged in shared memory by cp.async; ``fp_ray`` computes each
 (u, plane)'s u-part once for a thread's rows and skips the planes its rows
-cannot reach in a slab.
+cannot reach in a slab; ``tv_grad`` forms one smoothed magnitude per voxel
+from plane windows brought into shared memory by TMA.
 
 The LM serving path runs gemma2-9b at full width and depth (42 layers,
 bf16, seeded random weights made on the card):
@@ -73,13 +74,18 @@ OPS_PER_SAMPLE = 8
 #: taps 7, depth weight and accumulation 2
 OPS_PER_PAIR_VOXEL = 19
 #: fp32 operations per voxel in tv_grad's body, counted in csrc/tv_grad.cu:
-#: 15 at the voxel, 13 for each of the three backward terms (a sqrt and a
-#: division counted as one each)
-OPS_PER_VOXEL_TV = 54
+#: 21 at the voxel, 12 at each point of the ring (1/16 of the voxels at its
+#: 32 x 32 tiles) and of a chunk's prologue (1/32 at its 32-plane chunks); a
+#: sqrt and a reciprocal counted as one each
+OPS_PER_VOXEL_TV = 21 + 12 * (1 / 16 + 1 / 32)
 RTOL, ATOL = 2e-4, 5e-3    # kernel vs plain (tests/test_backend.py:23)
 TV_RTOL, TV_ATOL = 1e-5, 1e-5   # tv_grad vs plain (tests/test_kernels.py:70)
 SCALAR_RTOL = 1e-4         # ASD-POCS's dtvg / dp_first, streamed vs plain
 TV_STEPS = 20              # tv_grad launches per ASD-POCS iteration
+#: cases of tv_grad_cases(128) in which the PR 13 kernel equals the plain
+#: version bit for bit: all 16 (tools/probe_projectors.py --kernel tv_grad
+#: --parent counts them); the floor of phase_tv_grad_checks
+TV_BIT_EQUAL = 16
 ADJ_TOL = 1e-4             # relative adjoint defect (tests/test_adjoint.py)
 CGLS_TOL = 2e-3            # algorithm iterates (tests/test_adjoint.py:199)
 #: flash_attention vs plain, by type.  float32 as tests/test_kernels.py:84.
@@ -567,35 +573,57 @@ def phase_ossart_stream(n: int, n_angles: int, ds, x_plain, device_bytes):
     return counts
 
 
-def phase_tv_grad_checks(n: int):
-    """tv_grad against its plain version on the card: an N^3 and an odd
-    volume, volumes of 1 and 2 planes; seeded random values and the
-    piecewise-constant Shepp-Logan phantom (zero differences, so m = eps);
-    repeat launches bit-identical."""
+#: phase_tv_grad_checks' shapes beside an N^3 volume: an odd volume;
+#: volumes of 1 and 2 planes; Nz = 31, 32, 33 and 65 about csrc/tv_grad.cu's
+#: chunk of 32 planes, with Ny and Nx cutting its 32 x 32 tiles, Nx % 4 == 0
+#: (TMA) or not (4-byte copies); one row; one column
+TV_SHAPES = ((61, 37, 45), (1, 64, 64), (2, 64, 64), (31, 20, 45),
+             (32, 16, 64), (33, 17, 70), (65, 9, 33), (5, 1, 40), (6, 11, 1))
+
+
+def tv_grad_cases(n: int):
+    """(tag, volume on the card) for each case of phase_tv_grad_checks:
+    seeded random values at (N, N, N) and every shape of TV_SHAPES, and the
+    piecewise-constant Shepp-Logan phantom (zero differences, so m = eps)
+    where every axis exceeds 2."""
     import torch
     from repro_torch.core import phantoms
     from repro_torch.core.geometry import ConeGeometry
-    from repro_torch.kernels.tv_grad import tv_grad_cuda, tv_grad_plain
-    shapes = ((n, n, n), (61, 37, 45), (1, 64, 64), (2, 64, 64))
-    log(f"== tv_grad checks at {', '.join(str(s) for s in shapes)}")
     gen = torch.Generator(device="cuda").manual_seed(2)
-    same = 0
-    for shape in shapes:
-        vols = {"random": torch.randn(shape, generator=gen, device="cuda")}
+    for shape in ((n, n, n),) + TV_SHAPES:
+        yield f"{shape} random", torch.randn(shape, generator=gen,
+                                             device="cuda")
         if min(shape) > 2:
-            vols["shepp-logan"] = torch.from_numpy(phantoms.shepp_logan(
-                ConeGeometry.nice(n).with_voxels(shape))).cuda()
-        for kind, v in vols.items():
-            tag = f"tv_grad {shape} {kind}"
-            got = tv_grad_cuda(v)
-            want = tv_grad_plain(v)
-            check_close(tag, got, want, rtol=TV_RTOL, atol=TV_ATOL)
-            same += int(torch.equal(got, want))
-            if not torch.equal(got, tv_grad_cuda(v)):
-                raise AssertionError(f"{tag}: repeat launch differs")
+            yield f"{shape} shepp-logan", torch.from_numpy(
+                phantoms.shepp_logan(ConeGeometry.nice(n).with_voxels(
+                    shape))).cuda()
+
+
+def phase_tv_grad_checks(n: int):
+    """tv_grad against its plain version on the card at every case of
+    tv_grad_cases: within the band, equal bit for bit in at least as many
+    cases as the PR 13 kernel (TV_BIT_EQUAL), repeat launches
+    bit-identical."""
+    import torch
+    from repro_torch.kernels.tv_grad import tv_grad_cuda, tv_grad_plain
+    log(f"== tv_grad checks at {(n, n, n)} and "
+        + ", ".join(map(str, TV_SHAPES)))
+    same = cases = 0
+    for kind, v in tv_grad_cases(n):
+        tag = f"tv_grad {kind}"
+        got = tv_grad_cuda(v)
+        want = tv_grad_plain(v)
+        check_close(tag, got, want, rtol=TV_RTOL, atol=TV_ATOL)
+        cases += 1
+        same += int(torch.equal(got, want))
+        if not torch.equal(got, tv_grad_cuda(v)):
+            raise AssertionError(f"{tag}: repeat launch differs")
     torch.cuda.synchronize()
-    log(f"  repeat launches bit-identical; {same} of the cases equal to the "
-        "plain version bit for bit")
+    log(f"  repeat launches bit-identical; {same} of the {cases} cases equal "
+        "to the plain version bit for bit")
+    if same < TV_BIT_EQUAL:
+        raise AssertionError(f"tv_grad equals its plain version in {same} "
+                             f"cases, the PR 13 kernel in {TV_BIT_EQUAL}")
 
 
 def phase_asd_pocs_plain(n: int, n_angles: int, ds, iters: int):

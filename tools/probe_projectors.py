@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Probe builds of the port's ``fp_ray`` and ``bp_voxel`` kernels on one GPU.
+"""Probe builds of the port's ``fp_ray``, ``bp_voxel`` and ``tv_grad`` kernels.
 
 With no ``ncu`` on the card's machine, what holds a kernel back is read off
 variants of it, each timed by CUDA events at the main path's shape (N = 512:
@@ -35,8 +35,28 @@ above, and the checkout's own kernels (through their wrappers) are timed
 against them in turns (parent, this, this, parent) and compared: ``fp_ray``
 bit for bit, ``bp_voxel`` within the projector band.
 
+``--kernel tv_grad`` probes ``tv_grad`` instead, on a 512^3 volume of
+seeded random values.  Of the one-thread-per-voxel kernel (PR 13) it builds
+``base``, ``onem`` (only the voxel's own magnitude: the three recomputed
+ones' share; a wrong output, for timing only), ``rcp`` (``__frcp_rn`` for
+``__fdiv_rn(1, m)``) and ``noload``; of the tiled kernel (``kZC`` planes a
+block, a thread ``kRowsPer`` rows of a column) the variants ``rows4`` (4
+rows a thread, 8 warps a block, registers for 4 blocks an SM: the first
+tiled design), ``minb8`` (registers for 8 blocks an SM, not 6),
+``stages3`` and ``stages6`` (window buffers, not 4), ``zc16`` and ``zc64``
+(planes a chunk, not 32), ``nomath`` (the voxel's r as a sum, not a square root
+and a reciprocal: their share), ``nostore`` (no output written: the
+writes' share) and ``scalar`` (the 4-byte cp.async window of an Nx that is
+not a multiple of 4, not TMA); ``nomath`` and ``nostore`` give wrong
+outputs and serve timing only.  For each tree it counts the cases of
+``chip_smoke.py``'s ``tv_grad_cases`` (N = 128) that its kernel gives equal
+to ``tv_grad_plain`` bit for bit; with ``--parent`` it times the two trees
+in turns and compares them bit for bit at 512^3 on the random volume and
+on the Shepp-Logan phantom.
+
     python3 tools/probe_projectors.py                  # this tree's variants
     python3 tools/probe_projectors.py --parent build/parent/csrc
+    python3 tools/probe_projectors.py --kernel tv_grad [--parent DIR]
 
 The last line is a JSON object of every number printed.
 """
@@ -78,6 +98,13 @@ __device__ __forceinline__ float probe_floor(float x) {
 #define floorf(x) probe_floor(x)
 """,
 }
+
+
+#: PR 13's tv_grad with the three backward magnitudes replaced by the
+#: voxel's own (timing only)
+TV_ONEM = ((r"const float inv = __fdiv_rn\(1\.0f, magnitude\(bz, by, bx, "
+            r"eps2\)\);", "const float inv = inv_m;"),)
+TV_RCP = "#define __fdiv_rn(a, b) __frcp_rn(b)\n"
 
 
 def wrapper(src: Path, kernel: str, prelude: str) -> str:
@@ -131,6 +158,10 @@ def build_variants(specs):
         if p.returncode != 0:
             raise RuntimeError(f"probe build {tag} failed:\n{log}")
         regs = re.findall(r"Used (\d+) registers", log)
+        spills = [int(b) for b in re.findall(r"(\d+) bytes spill stores",
+                                             log)]
+        if any(spills):
+            regs = [f"{r} (spills {b} B)" for r, b in zip(regs, spills)]
         libs[tag] = (ctypes.CDLL(str(lib)), regs)
     return libs
 
@@ -150,26 +181,169 @@ def cuda_ms(fn, reps=5):
     return statistics.median(times)
 
 
+def card() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+
+
+def tv_specs(tree: str, csrc: Path):
+    """The tv_grad probe builds of one tree (see the module's doc)."""
+    if "kZC" not in (csrc / "tv_grad.cu").read_text():
+        return [(f"{tree}-tv-{var}", csrc, "tv_grad.cu", "tv_grad_kernel",
+                 256, prelude, subs)
+                for var, prelude, subs in (("base", "", ()),
+                                           ("onem", "", TV_ONEM),
+                                           ("rcp", TV_RCP, ()),
+                                           ("noload", PRELUDE["noload"], ()))]
+    st = r"constexpr int kStages = \d+;"
+    mb = r"constexpr int kMinBlocks = \d+;"
+    zc = r"constexpr int kZC = \d+;"
+    specs = []
+    for var, threads, subs in (
+            ("base", 128, ()),
+            ("rows4", 256, ((r"constexpr int kWarps = \d+;",
+                             "constexpr int kWarps = 8;"),
+                            (r"constexpr int kRowsPer = \d+;",
+                             "constexpr int kRowsPer = 4;"),
+                            (mb, "constexpr int kMinBlocks = 4;"))),
+            ("minb8", 128, ((mb, "constexpr int kMinBlocks = 8;"),)),
+            ("stages3", 128, ((st, "constexpr int kStages = 3;"),)),
+            ("stages6", 128, ((st, "constexpr int kStages = 6;"),)),
+            ("zc16", 128, ((zc, "constexpr int kZC = 16;"),)),
+            ("zc64", 128, ((zc, "constexpr int kZC = 64;"),)),
+            ("nomath", 128, ((r"const float r = __frcp_rn\(magnitude\("
+                              r"dz, dy, dx, eps2\)\);",
+                              "const float r = __fadd_rn(__fadd_rn(dz, dy),"
+                              " dx);"),)),
+            ("nostore", 128, ((r"if \(x < nx && ya \+ k < ny\) o\[",
+                               "if (gk == 1234.5f) o["),)),
+            ("scalar", 128, ((r"const bool tma = [^;]*;",
+                              "const bool tma = false;"),))):
+        kernel = "tv_grad_kernel<%s>" % ("false" if var == "scalar"
+                                         else "true")
+        specs.append((f"{tree}-tv-{var}", csrc, "tv_grad.cu", kernel,
+                      threads, "", subs))
+    return specs
+
+
+def main_tv(args) -> int:
+    """``--kernel tv_grad``: the probe builds of each tree timed at N^3, the
+    bit-equal count on chip_smoke's cases, and the parent in turns."""
+    import torch
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import tv_grad_cases
+    from repro_torch.core import phantoms
+    from repro_torch.core.geometry import ConeGeometry
+    from repro_torch.kernels import build
+    from repro_torch.kernels.tv_grad import tv_grad_cuda, tv_grad_plain
+    smi = card()
+    print(f"card: {smi}", flush=True)
+    result = {"card": smi, "n": args.n}
+    dev = torch.cuda.current_device()
+    stream = torch.cuda.current_stream().cuda_stream
+    eps2 = 1e-6 * 1e-6
+
+    def tv_call(lib, v):
+        fn = lib.tv_grad_launch
+        fn.argtypes = build.TV_ARGTYPES
+        fn.restype = ctypes.c_int
+        out = torch.empty_like(v)
+
+        def go():
+            rc = fn(v.data_ptr(), out.data_ptr(), *v.shape, eps2, dev,
+                    stream)
+            if rc:
+                raise RuntimeError(f"tv_grad probe launch: CUDA error {rc}")
+            return out
+        return go
+
+    trees = [("self", build.CSRC)]
+    if args.parent is not None:
+        trees.append(("parent", args.parent.resolve()))
+    specs = [s for tree, csrc in trees for s in tv_specs(tree, csrc)]
+    threads = {spec[0]: spec[4] for spec in specs}
+    t0 = time.perf_counter()
+    libs = build_variants(specs)
+    print(f"built {len(libs)} probe libraries in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+
+    n = args.n
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    vol = torch.randn((n, n, n), generator=gen, device="cuda")
+    probes = {}
+    for tag, (lib, regs) in libs.items():
+        ms = cuda_ms(tv_call(lib, vol), reps=9)
+        occ = lib.probe_occupancy(threads[tag], 0)
+        probes[tag] = {"ms": ms, "registers": regs, "blocks_per_sm": occ}
+        print(f"  {tag}: {ms:.4f} ms, registers {regs}, blocks/SM {occ}",
+              flush=True)
+    result["probes"] = probes
+
+    # each tree's kernel on chip_smoke's cases, against the plain version
+    launch = {"self": tv_grad_cuda}
+    if args.parent is not None:
+        launch["parent"] = lambda v: tv_call(libs["parent-tv-base"][0],
+                                             v)().clone()
+    equal = {tree: [] for tree in launch}
+    for kind, v in tv_grad_cases(128):
+        want = tv_grad_plain(v)
+        for tree, fn in launch.items():
+            if torch.equal(fn(v), want):
+                equal[tree].append(kind)
+    n_cases = len(list(tv_grad_cases(128)))
+    for tree, kinds in equal.items():
+        print(f"  {tree}: {len(kinds)} of {n_cases} cases of chip_smoke's "
+              "tv_grad_cases(128) equal to tv_grad_plain bit for bit",
+              flush=True)
+    result["bit_equal_cases"] = {t: len(k) for t, k in equal.items()}
+    result["cases"] = n_cases
+
+    if args.parent is not None:
+        p_fn = tv_call(libs["parent-tv-base"][0], vol)
+        s_fn = lambda: tv_grad_cuda(vol)                    # noqa: E731
+        t = [cuda_ms(p_fn, 9), cuda_ms(s_fn, 9), cuda_ms(s_fn, 9),
+             cuda_ms(p_fn, 9)]
+        turns = {"parent_ms": [t[0], t[3]], "self_ms": [t[1], t[2]]}
+        print(f"  tv_grad at {n}^3: parent {t[0]:.4f}, this {t[1]:.4f}, "
+              f"this {t[2]:.4f}, parent {t[3]:.4f} ms", flush=True)
+        phantom = torch.from_numpy(phantoms.shepp_logan(
+            ConeGeometry.nice(n))).cuda()
+        for kind, v in (("random", vol), ("shepp-logan", phantom)):
+            want = tv_call(libs["parent-tv-base"][0], v)().clone()
+            got = tv_grad_cuda(v)
+            diff = int((got != want).sum())
+            turns[f"differing_{kind}"] = diff
+            print(f"  this vs parent at {n}^3, {kind}: {diff} of "
+                  f"{want.numel()} outputs differ", flush=True)
+            del want, got
+        result["turns"] = turns
+    print(json.dumps(result))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", type=Path,
                     help="csrc/ of the tree to compare with (its kernels "
                          "are probed, and this tree's timed against them)")
+    ap.add_argument("--kernel", choices=("projectors", "tv_grad"),
+                    default="projectors")
     ap.add_argument("--n", type=int, default=512)
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("probe_projectors: no CUDA device", file=sys.stderr)
         return 2
+    if args.kernel == "tv_grad":
+        return main_tv(args)
     from repro_torch.core.geometry import (ConeGeometry, circular_angles,
                                            dominant_axis_mask)
     from repro_torch.kernels import build
     from repro_torch.kernels.bp_voxel import WEIGHTS, bp_voxel_cuda
     from repro_torch.kernels.fp_ray import (angle_constants, fp_ray_cuda,
                                             plane_centers)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip()
+    smi = card()
     print(f"card: {smi}", flush=True)
     result = {"card": smi, "n": args.n}
 
