@@ -13,7 +13,16 @@ CT paths run at N=512 (512^3 volume, 512^2 detector, 512 angles):
 * OS-SART on ``fp_ray`` and ``bp_voxel``, in-core and streamed;
 * ASD-POCS: OS-SART sweeps on ``fp_ray`` and ``bp_voxel`` and TV steepest
   descent on the TV-gradient kernel (``tv_grad``), in-core and streamed;
-* FISTA-TV on ``fp_ray`` and ``bp_matched`` with the ROF prox, in-core.
+* FISTA-TV on ``fp_ray`` and ``bp_matched`` with the ROF prox, in-core;
+* the multi-device layer, with several shards or lanes on the one card,
+  each on a CUDA stream of its own (the cost of the path itself: its
+  exchanges, reductions and stream overlap, not scaling across GPUs):
+  the operator sharded over a 2 x 2 mesh (A on ``fp_ray``, Aᵀ on
+  ``bp_matched`` and ``bp_voxel``) with 3 CGLS iterations, the psum, ring
+  and hier reductions on a 1 x 4 mesh and a 13-angle pad-mask case; the
+  halo-split TV (``tv_grad`` per shard) and ROF; streamed CGLS on two
+  lanes with the Fig 9 timeline bins and a Chrome trace in
+  ``chiprun_out/`` (and on two GPUs where the machine has them).
 
 ``bp_matched`` reads each voxel's taps off per-plane tables in shared
 memory; ``bp_voxel`` reads its taps off a window of each angle's
@@ -105,7 +114,13 @@ PATH_KERNELS = {"cgls": ("fp_ray", "bp_matched"), "fdk": ("bp_voxel",),
                 "ossart": ("fp_ray", "bp_voxel"),
                 "asd_pocs": ("fp_ray", "bp_voxel", "tv_grad"),
                 "fista": ("fp_ray", "bp_matched"),
+                "dist": ("fp_ray", "bp_matched", "bp_voxel"),
+                "dist_tv": ("tv_grad",),
                 "prefill": ("flash_attention",)}
+DIST_TV_RTOL, DIST_TV_ATOL = 1e-4, 1e-5    # tests/test_regularization.py:33
+DIST_ROF_RTOL, DIST_ROF_ATOL = 1e-3, 1e-5  # tests/test_regularization.py:61
+SCHEDULE_TOL = 1e-6        # psum / ring / hier (tests/test_comm_schedule.py)
+APPROX_NORM_TOL = 0.02     # paper SS2.3's no-sync norm (test_regularization)
 
 
 def log(msg: str) -> None:
@@ -323,7 +338,7 @@ def phase_main_plain(n: int, n_angles: int, iters: int):
     check_counts(counts, "cgls", "plain CGLS")
     launches_per_iter = launches_between(per_iter[0], per_iter[1])
     log(f"  launches per CGLS iteration {launches_per_iter}")
-    return ds, snaps["x2"], counts, launches_per_iter
+    return ds, snaps["x2"], counts, launches_per_iter, res.rec
 
 
 def phase_main_stream(n: int, n_angles: int, ds, x2_plain, device_bytes):
@@ -748,6 +763,261 @@ def phase_fista_plain(n: int, n_angles: int, ds, iters: int):
     check_image(res, geo)
     check_counts(counts, "fista", "plain FISTA")
     return counts, per
+
+
+# --------------------------------------------------------------------------
+# the multi-device layer: shards and lanes on one card
+# --------------------------------------------------------------------------
+
+def same_card_mesh(data: int, model: int):
+    from repro_torch.launch.mesh import make_host_mesh
+    return make_host_mesh(model, devices=["cuda:0"] * (data * model))
+
+
+def phase_dist(n: int, n_angles: int, ds, x3_plain, smi):
+    """The operator sharded over a 2 x 2 mesh of the card: A, Aᵀ (matched,
+    pmatched, fdk) and 3 CGLS iterations through the kernels, the three
+    reduction orders on a 1 x 4 mesh and 13 angles on the 2 x 2 mesh; then
+    each against the in-core operator."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.distributed import dist_forward_project
+    from repro_torch.core.geometry import ConeGeometry, circular_angles
+    from repro_torch.core.operator import CTOperator
+    from repro_torch.launch.recon import reconstruct
+    log(f"== dist: N={n}, {n_angles} angles, a 2 x 2 mesh of cuda:0 "
+        f"shards (and 1 x 4 for the reductions); card: {smi}")
+    geo = ConeGeometry.nice(n)
+    vol, angles, proj = ds
+    mesh = same_card_mesh(2, 2)
+    a13 = circular_angles(13)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    y13 = torch.randn((13,) + geo.n_detector, generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counters()
+    op = CTOperator(geo, angles, mode="dist", mesh=mesh)
+    fns = {"A": lambda: op.A(vol)}
+    for w in ("matched", "pmatched", "fdk"):
+        fns[w] = lambda w=w: op.At(proj, weight=w)
+    got = {k: f() for k, f in fns.items()}
+    res = reconstruct("cgls", n=n, n_angles=n_angles, iters=3, mode="dist",
+                      device="cuda", dataset=ds, mesh=mesh)
+    mesh14 = same_card_mesh(1, 4)
+    red = {}
+    for r in ("psum", "ring", "hier"):
+        fns[r] = lambda fp=dist_forward_project(mesh14, geo, reduce=r): \
+            fp(vol, angles)
+        red[r] = fns[r]()
+    op13 = CTOperator(geo, a13, mode="dist", mesh=mesh)
+    got["A13"], got["At13"] = op13.A(vol), op13.At(y13, weight="fdk")
+    got["At13m"] = op13.At(y13)
+    torch.cuda.synchronize()
+    counts = kernels.counters()
+    peak = torch.cuda.max_memory_allocated()
+    # timed after the counted run: CUDA-event medians of 3 after a warm-up
+    ms = {k: cuda_ms(f, reps=3) for k, f in fns.items()}
+    log(f"  A {ms['A']:.1f} ms, Aᵀ matched {ms['matched']:.1f} ms, "
+        f"pmatched {ms['pmatched']:.1f} ms, fdk {ms['fdk']:.1f} ms (CUDA-"
+        f"event medians of 3); CGLS seconds per iteration "
+        f"{[round(t, 3) for t in res.seconds]}, rel_err {res.rel_err:.4f}; "
+        f"A on 1 x 4 by psum {ms['psum']:.1f}, ring {ms['ring']:.1f}, hier "
+        f"{ms['hier']:.1f} ms")
+    log(f"  peak device memory {peak / 2**30:.2f} GiB ({(peak - base) / 2**20:.0f} "
+        f"MiB above the {base / 2**30:.2f} GiB held before it); counters "
+        f"{counts}")
+    check_counts(counts, "dist", "the sharded operator")
+    check_image(res, geo)
+    plain = CTOperator(geo, angles)
+    for key, want in (("A", lambda: plain.A(vol)),
+                      ("matched", lambda: plain.At(proj)),
+                      ("pmatched", lambda: plain.At(proj, weight="pmatched")),
+                      ("fdk", lambda: plain.At(proj, weight="fdk"))):
+        check_close(f"dist {key} vs in-core", got[key], want())
+    rel = adjoint_defect(got["A"], proj, vol, got["matched"])
+    log(f"  adjoint defect of the sharded pair: {rel:.3g}")
+    if not rel <= ADJ_TOL:
+        raise AssertionError(f"adjoint defect {rel:.3g} > {ADJ_TOL}")
+    for r in ("ring", "hier"):
+        check_close(f"A by {r} vs psum", red[r], red["psum"],
+                    rtol=SCHEDULE_TOL, atol=SCHEDULE_TOL)
+    check_close("A by psum (1 x 4) vs in-core", red["psum"], got["A"])
+    plain13 = CTOperator(geo, a13)
+    if tuple(got["A13"].shape) != (13,) + tuple(geo.n_detector):
+        raise AssertionError(f"13-angle A has shape {tuple(got['A13'].shape)}")
+    check_close("dist A, 13 angles vs in-core", got["A13"], plain13.A(vol))
+    check_close("dist Aᵀ fdk, 13 angles vs in-core", got["At13"],
+                plain13.At(y13, weight="fdk"))
+    check_close("dist Aᵀ matched, 13 angles vs in-core", got["At13m"],
+                plain13.At(y13))
+    check_close("dist CGLS x3 vs in-core CGLS x3", res.rec,
+                x3_plain.to(res.rec.device), rtol=CGLS_TOL, atol=CGLS_TOL)
+    return counts
+
+
+def phase_dist_tv(n: int, smi):
+    """The halo-split TV minimiser and ROF on the 2 x 2 mesh's two model
+    shards (both on cuda:0), on a seeded random N^3 volume, against the
+    monolithic ones; the n_inner 1 halo gradient against the monolithic
+    tv_grad bit for bit."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core import regularization as reg
+    from repro_torch.core.distributed import halo_exchange
+    log(f"== dist TV and ROF: a random {n}^3 volume, 2 model shards on "
+        f"cuda:0; card: {smi}")
+    mesh = same_card_mesh(2, 2)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    v = torch.randn((n, n, n), generator=gen, device="cuda")
+    # a step of the reference test's size per voxel (0.1 at 32 x 12 x 12)
+    hyper_big = 0.1 * (v.numel() / (32 * 12 * 12)) ** 0.5
+    torch.cuda.synchronize()
+    kernels.reset_counters()
+    fns, got = {}, {}
+    for key, hyper, approx in (("exact", 0.1, False), ("approx", 0.1, True),
+                               ("exact_big", hyper_big, False),
+                               ("approx_big", hyper_big, True)):
+        fn = reg.dist_minimize_tv(mesh, hyper, 20, 4, approx_norm=approx)
+        fns[key] = lambda fn=fn: fn(v)
+        got[key] = fns[key]()
+    fns["rof"] = lambda rof=reg.dist_rof_denoise(mesh, 10.0, 8, 4): rof(v)
+    got["rof"] = fns["rof"]()
+    halo = [reg._halo_gradient(vp, 1, j, 2, 1e-6)[3]
+            for j, vp in enumerate(halo_exchange(list(v.split(n // 2)), 1))]
+    torch.cuda.synchronize()
+    counts = kernels.counters()
+    log(f"  counters {counts}")
+    check_counts(counts, "dist_tv", "the halo-split TV")
+    mono = {"exact": reg.minimize_tv(v, 0.1, 20),
+            "exact_big": reg.minimize_tv(v, hyper_big, 20),
+            "rof": reg.rof_denoise(v, 10.0, 8)}
+    ms = {k: cuda_ms(fns[k], reps=3) for k in ("exact", "approx", "rof")}
+    ms["mono"] = cuda_ms(lambda: reg.minimize_tv(v, 0.1, 20), reps=3)
+    ms["mono_rof"] = cuda_ms(lambda: reg.rof_denoise(v, 10.0, 8), reps=3)
+    log(f"  20 TV steps, n_inner 4: halo-split {ms['exact']:.1f} ms (exact "
+        f"norm), {ms['approx']:.1f} ms (no-sync norm), monolithic "
+        f"{ms['mono']:.1f} ms; ROF 8 steps: halo-split {ms['rof']:.1f} ms, "
+        f"monolithic {ms['mono_rof']:.1f} ms (CUDA-event medians of 3)")
+    for key in ("exact", "exact_big"):
+        check_close(f"dist TV ({key}) vs monolithic", got[key], mono[key],
+                    rtol=DIST_TV_RTOL, atol=DIST_TV_ATOL)
+    for key in ("", "_big"):
+        e = got["exact" + key]
+        rel = float(torch.linalg.vector_norm(got["approx" + key] - e)
+                    / torch.linalg.vector_norm(e))
+        log(f"  no-sync norm vs exact{key or ''}: relative difference "
+            f"{rel:.3g}")
+        if not rel < APPROX_NORM_TOL:
+            raise AssertionError(f"approximate norm off by {rel:.3g}")
+    check_close("dist ROF vs monolithic", got["rof"], mono["rof"],
+                rtol=DIST_ROF_RTOL, atol=DIST_ROF_ATOL)
+    g = reg.tv_gradient(v)
+    planes = n // 2
+    for j, own in enumerate(halo):
+        if not torch.equal(own, g[j * planes:(j + 1) * planes]):
+            raise AssertionError(f"shard {j}'s halo gradient differs from "
+                                 "the monolithic tv_grad")
+    log("  n_inner 1: both shards' halo gradients equal the monolithic "
+        "tv_grad bit for bit")
+    return counts
+
+
+def phase_stream_devices(n: int, n_angles: int, ds, x2_plain, device_bytes,
+                         smi):
+    """Streamed CGLS on two lanes of cuda:0 (a plan for 2 devices under the
+    same per-device budget), then the Fig 9 bins of one A and one Aᵀ,
+    every prefetch depth bit-identical, and a Chrome trace; on a machine
+    with two GPUs the same on cuda:0 and cuda:1."""
+    import torch
+    from repro_torch import kernels, obs
+    from repro_torch.core.algorithms.stepwise import get_algorithm
+    from repro_torch.core.geometry import ConeGeometry
+    from repro_torch.core.operator import CTOperator
+    from repro_torch.core.splitting import MemoryModel
+    from repro_torch.core.streaming import (Timeline, stream_backward,
+                                            stream_forward)
+    geo = ConeGeometry.nice(n)
+    vol, angles, proj = ds
+    vol_h, proj_h = vol.cpu(), proj.cpu()
+    lanes = [["cuda:0", "cuda:0"]]
+    if torch.cuda.device_count() >= 2:
+        lanes.append(["cuda:0", "cuda:1"])
+    counts = None
+    for devs in lanes:
+        log(f"== streamed CGLS on devices {devs}: N={n}, {n_angles} angles, "
+            f"{device_bytes / 2**20:.0f} MiB per device, 2 iterations; "
+            f"card: {smi}")
+        op = CTOperator(geo, angles, mode="stream", devices=devs,
+                        memory=MemoryModel(device_bytes=device_bytes))
+        pl = op.plan
+        log(f"  plan: {pl.n_devices} devices, fp {pl.forward.n_slabs} slabs "
+            f"(angles {pl.forward.angle_ranges}), bp {pl.backward.n_slabs} "
+            f"slabs x chunk {pl.backward.angle_chunk} (devices "
+            f"{pl.backward.device_of_slab}), prefetch depth "
+            f"{pl.comm.prefetch_depth}")
+        alg = get_algorithm("cgls")
+        tracer = obs.Tracer(enabled=True)
+        prev = obs.set_tracer(tracer)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_counters()
+        try:
+            t0 = time.perf_counter()
+            st = alg.init(proj_h, geo, angles, op=op)
+            seconds = []
+            for _ in range(2):
+                t1 = time.perf_counter()
+                st = alg.step(st)
+                seconds.append(time.perf_counter() - t1)
+            x = alg.finalize(st)
+            wall = time.perf_counter() - t0
+        finally:
+            obs.set_tracer(prev)
+        c = kernels.counters()
+        if counts is None:
+            counts = c
+        peak = torch.cuda.max_memory_allocated()
+        phases = tracer.phase_seconds()
+        log(f"  seconds per iteration {[round(t, 3) for t in seconds]} "
+            f"({wall:.2f} s with init); peak device memory "
+            f"{peak / 2**30:.2f} GiB ({(peak - base) / 2**20:.0f} MiB above "
+            f"the {base / 2**30:.2f} GiB held before it); counters {c}")
+        log("  span seconds: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in sorted(phases.items()))
+            + f", outside spans {wall - sum(phases.values()):.3f}")
+        check_counts(c, "cgls", f"streamed CGLS on {devs}")
+        check_close(f"stream CGLS x2 on {devs} vs in-core x2", x,
+                    x2_plain.cpu(), rtol=CGLS_TOL, atol=CGLS_TOL)
+        tag = "-".join(d.replace(":", "") for d in devs)
+        out_dir = os.path.join(ROOT, "chiprun_out")
+        os.makedirs(out_dir, exist_ok=True)
+        trace_path = os.path.join(out_dir, f"stream_devices_{tag}.json")
+        tracer.write_chrome_trace(trace_path)
+        log(f"  Chrome trace of the run ({len(tracer.records())} records) "
+            f"in {os.path.relpath(trace_path, ROOT)}")
+        serial = pl.with_prefetch(0).comm
+        for what, run_op in (
+                ("A", lambda **kw: stream_forward(vol_h, geo, angles, pl,
+                                                  devices=devs, **kw)),
+                ("Aᵀ", lambda **kw: stream_backward(proj_h, geo, angles, pl,
+                                                    devices=devs, **kw))):
+            tl = Timeline()
+            t0 = time.perf_counter()
+            a = run_op(timeline=tl)
+            wall = time.perf_counter() - t0
+            if not torch.equal(a, run_op(comm=serial)):
+                raise AssertionError(f"stream {what} on {devs}: prefetch "
+                                     "depth changed the bits")
+            fr = tl.fractions()
+            log(f"  Fig 9 bins of one {what} ({wall:.3f} s): "
+                + ", ".join(f"{k} {tl.bins[k]:.3f} s ({fr[k]:.1%})"
+                            for k in ("staging", "compute", "other_memory"))
+                + f"; bit-identical at prefetch depth "
+                f"{pl.comm.prefetch_depth} and 0")
+    return counts
 
 
 # --------------------------------------------------------------------------
@@ -1326,10 +1596,12 @@ def main(argv=None) -> int:
     phase_tv_grad_checks(128)
     phase_flash_checks()
     n, n_angles = 512, 512
-    ds, x2, c_cgls, per_cgls = phase_main_plain(n, n_angles, iters=3)
+    ds, x2, c_cgls, per_cgls, x3 = phase_main_plain(n, n_angles, iters=3)
+    # kept for phase_dist and phase_stream_devices, in host memory so that
+    # the phases between hold what they held before
+    x2, x3 = x2.cpu(), x3.cpu()
     c_cgls_stream = phase_main_stream(n, n_angles, ds, x2,
                                       device_bytes=256 << 20)
-    del x2
     c_fdk = phase_fdk(n, n_angles, ds)
     x_sart, c_sart, per_sart = phase_ossart_plain(n, n_angles, ds, iters=2)
     c_sart_stream = phase_ossart_stream(n, n_angles, ds, x_sart,
@@ -1344,8 +1616,17 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     c_fista, per_fista = phase_fista_plain(n, n_angles, ds, iters=2)
     torch.cuda.empty_cache()
+    c_dist = phase_dist(n, n_angles, ds, x3, smi)
+    del x3
+    torch.cuda.empty_cache()
+    c_dist_tv = phase_dist_tv(n, smi)
+    torch.cuda.empty_cache()
+    c_stream_dev = phase_stream_devices(n, n_angles, ds, x2,
+                                        device_bytes=256 << 20, smi=smi)
+    del x2
+    torch.cuda.empty_cache()
     runs = (c_cgls, c_cgls_stream, c_fdk, c_sart, c_sart_stream, c_asd,
-            c_asd_stream, c_fista)
+            c_asd_stream, c_fista, c_dist, c_dist_tv, c_stream_dev)
     ct_kernels = ("fp_ray", "bp_matched", "bp_voxel", "tv_grad")
     launches = {k: sum(c[k]["launches"] for c in runs) for k in ct_kernels}
     rows = phase_times(n, n_angles, ds, launches,

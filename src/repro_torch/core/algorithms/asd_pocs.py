@@ -11,7 +11,8 @@ stream mode).  The TV descent always runs on ``op.device``, through the
 for it and back afterwards, as the reference holds the whole volume on
 its device for this step.  That step is not split into slabs: at N=512 it
 holds about three 512 MB volumes on the device whatever the memory
-budget (the halo-split TV arrives with ROADMAP Queue A3).
+budget (streaming it through the halo-split ``dist_minimize_tv`` is ROADMAP
+Queue A2).
 
 Step-wise form (``asd_pocs_init`` / ``asd_pocs_step``): the adaptive
 scalars (dtvg, dp_first, decaying lmbda) ride along in

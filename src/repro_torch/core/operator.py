@@ -9,19 +9,22 @@ execution:
 
 * ``mode="plain"``  -- the volume and projections live on the device;
 * ``mode="stream"`` -- the paper's out-of-core executor: they live in host
-  memory and the device holds only what the plan stages
-  (:mod:`repro_torch.core.streaming`).
+  memory and each device of ``devices`` holds only what the plan stages
+  (:mod:`repro_torch.core.streaming`);
+* ``mode="dist"``   -- sharded over a device mesh, angles over ``data`` and
+  z slabs over ``model`` (:mod:`repro_torch.core.distributed`); the volume
+  and projections live on ``mesh.devices.flat[0]``.
 
-``mode="dist"`` arrives with the distributed slice.  Both modes are built
-from one memoized :class:`~repro_torch.core.plan.ExecutionPlan`
-(``self.plan``) and draw their kernels from the backend registry
-(:mod:`repro_torch.core.backend`).  The operator runs on the card unless
-the caller passes ``device="cpu"``.
+Every mode is built from one memoized
+:class:`~repro_torch.core.plan.ExecutionPlan` (``self.plan``) and draws its
+kernels from the backend registry (:mod:`repro_torch.core.backend`).  The
+operator runs on the card unless the caller passes ``device="cpu"`` (or a
+mesh or devices on the CPU).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -39,50 +42,84 @@ class CTOperator:
     Parameters
     ----------
     geo, angles : geometry and the (static, numpy) gantry angles.
-    mode : "plain" | "stream".
+    mode : "plain" | "stream" | "dist".
     bp_weight : default backprojection weighting: "matched" (the exact
         adjoint of ``A``) or a voxel-driven weight, "fdk", "pmatched" or
         "none".
+    mesh : a :class:`~repro_torch.launch.mesh.Mesh` with ("data",
+        "model") axes, required for mode="dist".
     memory : memory model of the device (defaults to an 11 GiB device);
         ``mode="stream"`` splits the volume to fit it.
+    devices : the devices a streamed run spreads over (mode="stream"; the
+        plan is made for their count).
     backend : kernel backend name ("ref" | "cuda" | "auto"/None).
     plan : pre-computed :class:`~repro_torch.core.plan.ExecutionPlan`;
         derived (memoized) from the other arguments when omitted.
     device : where the kernels run; None means the card (and raises when
-        there is none), ``"cpu"`` runs the plain versions on the CPU.
+        there is none), ``"cpu"`` runs the plain versions on the CPU.  In
+        dist mode the mesh's first device, in stream mode with ``devices``
+        the first of them.
     """
 
     def __init__(self, geo: ConeGeometry, angles, mode: str = "plain",
-                 bp_weight: str = "matched",
+                 bp_weight: str = "matched", mesh=None,
                  memory: Optional[MemoryModel] = None,
+                 devices: Optional[Sequence[DeviceLike]] = None,
                  backend: Optional[str] = None,
                  plan: Optional[ExecutionPlan] = None,
                  device: DeviceLike = None):
-        if mode == "dist":
-            raise NotImplementedError(
-                "mode='dist' arrives with the distributed slice "
-                "(ROADMAP Queue A 10)")
-        if mode not in ("plain", "stream"):
+        if mode not in ("plain", "stream", "dist"):
             raise ValueError(f"unknown mode {mode!r}")
+        if mode == "dist" and mesh is None:
+            raise ValueError("mode='dist' needs a mesh")
         self.geo = geo
         self.angles_np = np.asarray(angles, np.float32)
         self.mode = mode
         self.bp_weight = bp_weight
+        self.mesh = mesh
+        self.devices = (None if devices is None or mode != "stream"
+                        else [resolve_device(d) for d in devices])
+        if mode == "dist":
+            device = mesh.devices.flat[0]
+        elif self.devices:
+            device = self.devices[0]
         self.device = resolve_device(device)
         self.backend_name = resolve_backend(backend, self.device)
         self._backend = get_backend(self.backend_name)
         self.angles = torch.from_numpy(self.angles_np).to(self.device)
         self.memory = memory or MemoryModel()
         self._xdom = dominant_axis_mask(self.angles_np)
+        # one plan drives every mode: dist mode reads its reduction and
+        # dominance-split decisions (n_devices = the mesh's model axis)
+        if mode == "dist":
+            n_dev = mesh.shape["model"]
+        elif self.devices:
+            n_dev = len(self.devices)
+        else:
+            n_dev = 1
         self.plan = plan if plan is not None else \
-            plan_execution(geo, len(self.angles_np), 1, self.memory)
+            plan_execution(geo, len(self.angles_np), n_dev, self.memory)
+        if mode == "dist":
+            from .distributed import (dist_backproject,
+                                      dist_backproject_matched,
+                                      dist_forward_project)
+            comm, name = self.plan.comm, self.backend_name
+            self._a = dist_forward_project(mesh, geo, backend=name,
+                                           comm=comm)
+            self._at = {w: dist_backproject(mesh, geo, weight=w,
+                                            backend=name, comm=comm)
+                        for w in ("fdk", "pmatched", "none")}
+            self._at["matched"] = dist_backproject_matched(mesh, geo,
+                                                           backend=name)
+            self._data_axis_size = mesh.shape["data"]
 
     @property
     def data_device(self) -> torch.device:
         """Where ``A``'s and ``At``'s inputs and outputs live: the device
-        in plain mode, host memory in stream mode (the volume need not fit
-        on the device)."""
-        return self.device if self.mode == "plain" else torch.device("cpu")
+        in plain mode, the mesh's first device in dist mode, host memory
+        in stream mode (the volume need not fit on the device)."""
+        return (torch.device("cpu") if self.mode == "stream"
+                else self.device)
 
     def _angles(self, angles):
         """(numpy angles, dominance mask, device tensor) of a call."""
@@ -107,7 +144,9 @@ class CTOperator:
         else:
             for xd in present:
                 self._backend.fp(self.geo, xdom=xd)
-            for z0, z1 in self.plan.backward.slab_ranges:
+            slabs = (self.plan.backward.slab_ranges if self.mode == "stream"
+                     else [(0, nz // self.mesh.shape["model"])])
+            for z0, z1 in slabs:
                 if weight != "matched":
                     self._backend.bp(self.geo, planes=z1 - z0,
                                      weight=weight)
@@ -122,9 +161,12 @@ class CTOperator:
                 build.entry(name)
 
     def kernel_config(self) -> dict:
-        """The backend's tunable block-size config for this geometry."""
-        return self._backend.kernel_config(self.geo,
-                                           planes=self.geo.n_voxel[0])
+        """The backend's tunable block-size config for this geometry (at a
+        model shard's slab in dist mode)."""
+        planes = self.geo.n_voxel[0]
+        if self.mode == "dist":
+            planes //= self.mesh.shape["model"]
+        return self._backend.kernel_config(self.geo, planes=planes)
 
     # ---- forward ----------------------------------------------------------
     def A(self, vol, angles=None) -> torch.Tensor:
@@ -132,8 +174,15 @@ class CTOperator:
         if self.mode == "stream":
             from .streaming import stream_forward
             return stream_forward(vol, self.geo, a_np, self.plan,
-                                  device=self.device,
+                                  devices=self.devices or [self.device],
                                   backend=self.backend_name)
+        if self.mode == "dist":
+            from .distributed import pad_angles
+            # the data axis takes a multiple of its size: pad with
+            # duplicates and drop their (suffix) rows afterwards
+            padded, valid = pad_angles(a_np, self._data_axis_size)
+            out = self._a(vol, padded)
+            return out if valid.all() else out[:len(a_np)]
         fp = self._backend.fp_mixed(self.geo, mask)
         return fp(as_f32(vol, self.device), a_dev)
 
@@ -145,8 +194,19 @@ class CTOperator:
         if self.mode == "stream":
             from .streaming import stream_backward
             return stream_backward(proj, self.geo, a_np, self.plan,
-                                   weight=weight, device=self.device,
+                                   weight=weight,
+                                   devices=self.devices or [self.device],
                                    backend=self.backend_name)
+        if self.mode == "dist":
+            from .distributed import pad_angles
+            padded, valid = pad_angles(a_np, self._data_axis_size)
+            proj = as_f32(proj, self.device)
+            if not valid.all():
+                # zero rows for the padded duplicates: BP is linear in the
+                # projections, so they add nothing to the sums
+                proj = torch.cat([proj, proj.new_zeros(
+                    (len(padded) - len(a_np),) + tuple(self.geo.n_detector))])
+            return self._at[weight](proj, padded)
         if weight != "matched":
             bp = self._backend.bp(self.geo, planes=self.geo.n_voxel[0],
                                   weight=weight)

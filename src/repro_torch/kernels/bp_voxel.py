@@ -150,15 +150,13 @@ def bp_voxel_cuda(proj: torch.Tensor, geo: ConeGeometry, angles,
     if consts.shape[0] == 0 or planes == 0:
         return out.zero_()
     proj = proj.contiguous()
-    rc = build.entry("bp_voxel")(
-        proj.data_ptr(), consts.data_ptr(), out.data_ptr(),
+    build.launch(
+        "bp_voxel", dev, proj.data_ptr(), consts.data_ptr(), out.data_ptr(),
         consts.shape[0], nz, ny, nx, planes, nv, nu,
         dz, dy, dx, dv, du, offz, offy, offx, offv / dv, offu,
         geo.DSO, geo.DSD, geo.DSO / geo.DSD, float(z_start), code,
         dev.index if dev.index is not None else torch.cuda.current_device(),
         torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"bp_voxel kernel launch failed: CUDA error {rc}")
     bp_voxel_cuda.launches += 1
     return out
 

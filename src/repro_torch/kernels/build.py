@@ -30,6 +30,8 @@ import time
 from pathlib import Path
 from typing import Callable, Dict, Iterable, Optional
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 #: kernel name -> its source under csrc/
 SOURCES = {"fp_ray": "fp_ray.cu", "bp_matched": "bp_matched.cu",
@@ -163,3 +165,18 @@ def entry(name: str):
         fn.restype = ctypes.c_int
         _ENTRIES[name] = fn
     return fn
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call kernel ``name``'s C entry with ``args`` (its tensors and
+    counts, then the device index and the stream), leaving the caller's
+    current device as it was: the entries select their device with
+    ``cudaSetDevice`` and do not put the previous one back.  Raise on a
+    nonzero ``cudaGetLastError()``."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        rc = entry(name)(*args)
+    else:
+        with torch.cuda.device(device):
+            rc = entry(name)(*args)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")

@@ -155,15 +155,13 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if out.numel() == 0:
         return out
     dev = q.device
-    rc = build.entry("flash_attention")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq,
+    build.launch(
+        "flash_attention", dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), b, hq,
         k.shape[1], s, d, _DTYPES[q.dtype], 1.0 / math.sqrt(d), int(causal),
         window or 0, float(softcap or 0.0),
         dev.index if dev.index is not None else torch.cuda.current_device(),
         torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError("flash_attention kernel launch failed: CUDA error "
-                           f"{rc}")
     flash_attention_cuda.launches += 1
     flash_attention_cuda.wgmma_launches += int(q.dtype == torch.bfloat16)
     return out

@@ -167,8 +167,9 @@ def launch(name: str, lead: tuple, consts: torch.Tensor, geo: ConeGeometry,
            nz_slab: int, z0) -> None:
     """Launch Joseph kernel ``name`` on PyTorch's current stream: its C
     entry takes ``lead`` (the addresses of its tensors, then any counts of
-    its own), then ``consts``'s angle count and the geometry.  Raise on a
-    nonzero ``cudaGetLastError()``."""
+    its own), then ``consts``'s angle count and the geometry
+    (:func:`build.launch`: the caller's current device is kept, and a
+    nonzero ``cudaGetLastError()`` raises)."""
     nz, ny, nx = geo.n_voxel
     nv, nu = geo.n_detector
     dz, dy, dx = geo.d_voxel
@@ -177,13 +178,11 @@ def launch(name: str, lead: tuple, consts: torch.Tensor, geo: ConeGeometry,
     offv, offu = geo.off_detector
     dev = consts.device
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = build.entry(name)(
-        *lead, consts.shape[0], nz, ny, nx, nz_slab, nv, nu,
+    build.launch(
+        name, dev, *lead, consts.shape[0], nz, ny, nx, nz_slab, nv, nu,
         dz, dy, dx, dv, du, offz, offy, offv, offu, float(z0),
         dev.index if dev.index is not None else torch.cuda.current_device(),
         stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
 def _check_vol(vol: torch.Tensor, geo: ConeGeometry) -> None:

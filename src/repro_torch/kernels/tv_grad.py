@@ -90,12 +90,11 @@ def tv_grad_cuda(vol: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
         return out
     nz, ny, nx = vol.shape
     dev = vol.device
-    rc = build.entry("tv_grad")(
-        vol.data_ptr(), out.data_ptr(), nz, ny, nx, float(eps) * float(eps),
+    build.launch(
+        "tv_grad", dev, vol.data_ptr(), out.data_ptr(), nz, ny, nx,
+        float(eps) * float(eps),
         dev.index if dev.index is not None else torch.cuda.current_device(),
         torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"tv_grad kernel launch failed: CUDA error {rc}")
     tv_grad_cuda.launches += 1
     return out
 

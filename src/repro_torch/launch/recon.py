@@ -23,7 +23,10 @@ Usage::
         --n 64 --angles 96 --iters 2
     PYTHONPATH=src python -m repro_torch.launch.recon --alg fista --n 64 \
         --angles 96 --iters 2
-    # the plain-PyTorch versions on the CPU:
+    # sharded over a mesh of every GPU present (angles over "data"):
+    PYTHONPATH=src python -m repro_torch.launch.recon --alg ossart --n 64 \
+        --angles 96 --iters 2 --mode dist
+    # the plain-PyTorch versions on the CPU (dist: a mesh of one CPU shard):
     ... --device cpu
 
 Prints ``[recon] ... rel_err=...`` like the reference.
@@ -44,6 +47,7 @@ from ..core.geometry import ConeGeometry
 from ..core.operator import CTOperator
 from ..core.splitting import MemoryModel
 from ..data import make_ct_dataset
+from .mesh import make_host_mesh
 
 
 @dataclasses.dataclass
@@ -70,13 +74,17 @@ def _job_params(algname: str, n_angles: int) -> dict:
 def reconstruct(algname: str = "cgls", n: int = 64, n_angles: int = 96,
                 iters: int = 10, mode: str = "plain", device_bytes: int = 0,
                 device: DeviceLike = None, verbose: bool = True,
-                dataset=None,
-                callback: Optional[Callable] = None) -> ReconResult:
+                dataset=None, callback: Optional[Callable] = None,
+                mesh=None) -> ReconResult:
     """Reconstruct the N^3 Shepp-Logan phantom from ``n_angles``
     projections with ``iters`` iterations of ``algname`` (one step for a
     direct algorithm such as FDK).  ``dataset`` reuses a
     ``make_ct_dataset`` result for the same geometry; ``callback(it,
-    state)`` runs after every step."""
+    state)`` runs after every step.  ``mode="dist"`` shards over ``mesh``
+    (default, as the reference's driver: a (data, model) = (n, 1) mesh of
+    every GPU present, or of ``device`` when that is the CPU); every mode
+    backprojects with the algorithm's weight (the matched adjoint for CGLS
+    and FISTA, pmatched otherwise), as the reference's dist mode does."""
     alg = get_algorithm(algname)
     dev = resolve_device(device)
     geo = ConeGeometry.nice(n)
@@ -84,8 +92,11 @@ def reconstruct(algname: str = "cgls", n: int = 64, n_angles: int = 96,
                          else make_ct_dataset(geo, n_angles, device=dev))
     mem = (MemoryModel(device_bytes=device_bytes) if device_bytes
            else MemoryModel())
+    if mode == "dist" and mesh is None:
+        mesh = make_host_mesh(
+            model_axis=1, devices=None if dev.type == "cuda" else [dev])
     op = CTOperator(geo, angles, mode=mode, bp_weight=alg.default_bp_weight,
-                    memory=mem, device=dev)
+                    mesh=mesh, memory=mem, device=dev)
     t_start = time.perf_counter()
     st = alg.init(proj, geo, angles, op=op, **_job_params(algname, n_angles))
     has_r = hasattr(st, "r")
@@ -121,7 +132,8 @@ def main(argv=None):
     ap.add_argument("--n", type=int, default=64)
     ap.add_argument("--angles", type=int, default=96)
     ap.add_argument("--iters", type=int, default=10)
-    ap.add_argument("--mode", default="plain", choices=("plain", "stream"))
+    ap.add_argument("--mode", default="plain",
+                    choices=("plain", "stream", "dist"))
     ap.add_argument("--device-bytes", type=int, default=0,
                     help="per-device memory budget the planner splits for")
     ap.add_argument("--device", default=None, choices=("cuda", "cpu"),

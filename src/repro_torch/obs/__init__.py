@@ -1,8 +1,14 @@
-"""Observability for the port: the span recorder (see :mod:`.trace`)."""
+"""Observability for the port: the span/event recorder and its Chrome-trace
+and Prometheus exporters (see :mod:`.trace`)."""
 
 from . import trace
-from .trace import (Span, SpanHandle, Tracer, begin, enabled, end,
-                    get_tracer, incr, set_tracer, span)
+from .trace import (PHASE_CATEGORIES, InstantEvent, Span, SpanHandle,
+                    Tracer, begin, chrome_trace, context, enabled, end,
+                    event, get_tracer, incr, prometheus_snapshot,
+                    set_tracer, span, write_chrome_trace)
 
-__all__ = ["trace", "Span", "SpanHandle", "Tracer", "begin", "enabled",
-           "end", "get_tracer", "incr", "set_tracer", "span"]
+__all__ = ["trace", "PHASE_CATEGORIES", "InstantEvent", "Span",
+           "SpanHandle", "Tracer", "begin", "chrome_trace", "context",
+           "enabled", "end", "event", "get_tracer", "incr",
+           "prometheus_snapshot", "set_tracer", "span",
+           "write_chrome_trace"]

@@ -270,8 +270,14 @@ def test_cuda_matched_path_builds_no_ref_operators(mode):
 
 
 def test_unported_paths_raise_and_name_the_later_slice():
-    with pytest.raises(NotImplementedError, match="distributed slice"):
+    # dist mode is ported (tests/test_torch_distributed.py): it needs a mesh
+    with pytest.raises(ValueError, match="needs a mesh"):
         CTOperator(GEO, ANGLES, mode="dist", device=CPU)
+    from repro_torch.launch.mesh import make_host_mesh
+    dist = CTOperator(GEO, ANGLES, mode="dist", backend="cuda",
+                      mesh=make_host_mesh(2, devices=[CPU] * 4))
+    assert dist.A(np.ones(GEO.n_voxel, np.float32)).shape == \
+        (len(ANGLES),) + GEO.n_detector
     op = _op(GEO, ANGLES, "plain")
     y = np.ones((len(ANGLES),) + GEO.n_detector, np.float32)
     for weight in ("fdk", "pmatched", "none"):      # ported: they run
