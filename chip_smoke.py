@@ -121,6 +121,10 @@ DIST_TV_RTOL, DIST_TV_ATOL = 1e-4, 1e-5    # tests/test_regularization.py:33
 DIST_ROF_RTOL, DIST_ROF_ATOL = 1e-3, 1e-5  # tests/test_regularization.py:61
 SCHEDULE_TOL = 1e-6        # psum / ring / hier (tests/test_comm_schedule.py)
 APPROX_NORM_TOL = 0.02     # paper SS2.3's no-sync norm (test_regularization)
+#: the no-sync norm against the exact one on the large-step case, where a
+#: step sqrt(2) off (the sqrt(n_shards) factor dropped) moves the result by
+#: about 1 %; phase_dist_tv checks that such a step leaves this bound
+APPROX_NORM_BIG_TOL = 1e-3
 
 
 def log(msg: str) -> None:
@@ -774,11 +778,96 @@ def same_card_mesh(data: int, model: int):
     return make_host_mesh(model, devices=["cuda:0"] * (data * model))
 
 
+def dist_shard_inputs(a_np, y, n_data: int, i: int, split: bool, device):
+    """What data index ``i`` of a dist call gets, as ``CTOperator`` and the
+    sharded operators split it: the angles padded to the data axis (zero
+    projection rows for the pad), then, with ``split``, grouped by
+    dominance and each group padded again.  ``[(xdom, angles, rows)]`` on
+    ``device``, ``rows`` None when ``y`` is."""
+    import numpy as np
+    import torch
+    from repro_torch.core.distributed import _dominance_groups, pad_angles
+
+    def padded_rows(rows, n_pad):
+        return torch.cat([rows, rows.new_zeros((n_pad,) + rows.shape[1:])])
+    padded, valid = pad_angles(a_np, n_data)
+    if y is not None and not valid.all():
+        y = padded_rows(y, len(padded) - len(a_np))
+    groups = (_dominance_groups(padded) if split
+              else [(None, np.arange(len(padded)))])
+    out = []
+    for xdom, idx in groups:
+        a, v = pad_angles(padded[idx], n_data)
+        rows = slice(i * len(a) // n_data, (i + 1) * len(a) // n_data)
+        yy = None
+        if y is not None:
+            yy = y[torch.from_numpy(idx).to(y.device)]
+            if not v.all():
+                yy = padded_rows(yy, len(a) - idx.size)
+            yy = yy[rows].contiguous()
+        out.append((xdom, torch.from_numpy(a[rows]).to(device), yy))
+    return out
+
+
+def check_dist_shards(geo, vol, angles, proj, a13, y13):
+    """One shard's slab call of each kernel on the dist path, through the
+    backend as the shard makes it, against the plain version on the same
+    slab, angles and z0: shard (1, 1) of the 2 x 2 mesh (z0 = N/2, the
+    second angle chunk) with 512 and with 13 angles (padded rows), and
+    shard (0, 3) of the 1 x 4 mesh (z0 = 3N/4).  Made after the counted
+    run, so these launches count nowhere."""
+    import math
+    from repro_torch.core.backend import get_backend
+    from repro_torch.core.projector import _rotate_vol_90, _unrotate_vol_90
+    from repro_torch.kernels.bp_matched import bp_matched_plain
+    from repro_torch.kernels.bp_voxel import bp_voxel_plain
+    from repro_torch.kernels.fp_ray import fp_ray_plain
+    cuda = get_backend("cuda")
+
+    def fp_plain(xdom, slab, a, z0):
+        if not xdom:         # the backend's -90 deg rotation trick
+            slab, a = _rotate_vol_90(slab).contiguous(), a - math.pi / 2
+        return fp_ray_plain(slab, geo, a, z0)
+
+    def bm_plain(xdom, y, a, z0, planes):
+        s = bp_matched_plain(y, geo, a if xdom else a - math.pi / 2, z0,
+                             planes)
+        return s if xdom else _unrotate_vol_90(s).contiguous()
+    nz = geo.n_voxel[0]
+    for n_data, n_model, i, j, a_np, y, bp_weights in (
+            (2, 2, 1, 1, angles, proj, ("pmatched", "fdk")),
+            (2, 2, 1, 1, a13, y13, ("fdk",)),
+            (1, 4, 0, 3, angles, None, ())):
+        planes = nz // n_model
+        z0 = j * planes
+        slab = vol[z0:z0 + planes]
+        tag = (f"shard ({i}, {j}) of {n_data} x {n_model}, {len(a_np)} "
+               f"angles, z0 {z0}")
+        for xdom, a, yy in dist_shard_inputs(a_np, y, n_data, i, True,
+                                             vol.device):
+            dom = "x" if xdom else "y"
+            check_close(f"{tag}: fp_ray, {len(a)} {dom}-dominant angles",
+                        cuda.fp(geo, xdom=xdom)(slab, a, z0),
+                        fp_plain(xdom, slab, a, z0))
+            if yy is not None:
+                check_close(
+                    f"{tag}: bp_matched, {len(a)} {dom}-dominant rows",
+                    cuda.bp_matched(geo, planes=planes, xdom=xdom)(yy, a, z0),
+                    bm_plain(xdom, yy, a, z0, planes))
+        for w in bp_weights:
+            (_, a, yy), = dist_shard_inputs(a_np, y, n_data, i, False,
+                                            vol.device)
+            check_close(f"{tag}: bp_voxel {w}, {len(a)} rows",
+                        cuda.bp(geo, planes=planes, weight=w)(yy, a, z0),
+                        bp_voxel_plain(yy, geo, a, w, z0, planes))
+
+
 def phase_dist(n: int, n_angles: int, ds, x3_plain, smi):
     """The operator sharded over a 2 x 2 mesh of the card: A, Aᵀ (matched,
     pmatched, fdk) and 3 CGLS iterations through the kernels, the three
     reduction orders on a 1 x 4 mesh and 13 angles on the 2 x 2 mesh; then
-    each against the in-core operator."""
+    each against the in-core operator, and one shard's call of each kernel
+    against its plain version."""
     import numpy as np
     import torch
     from repro_torch import kernels
@@ -854,6 +943,7 @@ def phase_dist(n: int, n_angles: int, ds, x3_plain, smi):
                 plain13.At(y13))
     check_close("dist CGLS x3 vs in-core CGLS x3", res.rec,
                 x3_plain.to(res.rec.device), rtol=CGLS_TOL, atol=CGLS_TOL)
+    check_dist_shards(geo, vol, angles, proj, a13, y13)
     return counts
 
 
@@ -890,6 +980,10 @@ def phase_dist_tv(n: int, smi):
     counts = kernels.counters()
     log(f"  counters {counts}")
     check_counts(counts, "dist_tv", "the halo-split TV")
+    # the no-sync norm with its sqrt(n_shards) factor dropped: a step
+    # sqrt(2) larger, which the large-step bound must tell apart
+    wrong_big = reg.dist_minimize_tv(mesh, hyper_big * 2 ** 0.5, 20, 4,
+                                     approx_norm=True)(v)
     mono = {"exact": reg.minimize_tv(v, 0.1, 20),
             "exact_big": reg.minimize_tv(v, hyper_big, 20),
             "rof": reg.rof_denoise(v, 10.0, 8)}
@@ -903,14 +997,26 @@ def phase_dist_tv(n: int, smi):
     for key in ("exact", "exact_big"):
         check_close(f"dist TV ({key}) vs monolithic", got[key], mono[key],
                     rtol=DIST_TV_RTOL, atol=DIST_TV_ATOL)
+
+    def rel_diff(a, b):
+        return float(torch.linalg.vector_norm(a - b)
+                     / torch.linalg.vector_norm(b))
     for key in ("", "_big"):
-        e = got["exact" + key]
-        rel = float(torch.linalg.vector_norm(got["approx" + key] - e)
-                    / torch.linalg.vector_norm(e))
-        log(f"  no-sync norm vs exact{key or ''}: relative difference "
-            f"{rel:.3g}")
+        rel = rel_diff(got["approx" + key], got["exact" + key])
+        log(f"  no-sync norm vs exact{key}: relative difference {rel:.3g}")
         if not rel < APPROX_NORM_TOL:
             raise AssertionError(f"approximate norm off by {rel:.3g}")
+    rel = rel_diff(got["approx_big"], got["exact_big"])
+    if not rel < APPROX_NORM_BIG_TOL:
+        raise AssertionError(f"approximate norm off by {rel:.3g} on the "
+                             f"large-step case (bound {APPROX_NORM_BIG_TOL})")
+    rel_wrong = rel_diff(wrong_big, got["exact_big"])
+    log(f"  the no-sync norm without its sqrt(n_shards) factor: relative "
+        f"difference {rel_wrong:.3g} on the large-step case (bound "
+        f"{APPROX_NORM_BIG_TOL})")
+    if not rel_wrong >= APPROX_NORM_BIG_TOL:
+        raise AssertionError("the large-step bound does not tell a step "
+                             "sqrt(2) off apart")
     check_close("dist ROF vs monolithic", got["rof"], mono["rof"],
                 rtol=DIST_ROF_RTOL, atol=DIST_ROF_ATOL)
     g = reg.tv_gradient(v)

@@ -26,8 +26,8 @@ Each shard calls the backend's slab kernels (``bk.fp``, ``bk.bp``,
 ``fp_ray``, ``bp_voxel`` and ``bp_matched`` kernels.  The full-size input
 and the result live on ``mesh.devices.flat[0]``, the port's stand-in for
 the reference's global array.  Where the reference's ``out_specs`` keeps
-one replica of an all-reduced value, the port keeps the same one: index 0
-along the reduced axis.
+one replica of an all-reduced value, the port computes only that one: the
+sum on the first shard along the reduced axis.
 """
 
 from __future__ import annotations
@@ -133,13 +133,12 @@ class ShardStreams:
                 torch.cuda.synchronize(d)
 
 
-def _grid(mesh, data_axis: str, model_axis: str) -> np.ndarray:
+def _grid(mesh) -> np.ndarray:
     """The mesh's devices as a (data, model) object array."""
-    if sorted(mesh.axis_names) != sorted((data_axis, model_axis)):
-        raise ValueError(f"the distributed operators take a ({data_axis}, "
-                         f"{model_axis}) mesh, got axes {mesh.axis_names}")
-    devs = mesh.devices
-    return devs if mesh.axis_names[0] == data_axis else devs.T
+    if tuple(mesh.axis_names) != ("data", "model"):
+        raise ValueError("the distributed operators take a (data, model) "
+                         f"mesh, got axes {mesh.axis_names}")
+    return mesh.devices
 
 
 def _upload(x: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -160,48 +159,48 @@ def _slab_planes(geo: ConeGeometry, n_model: int) -> int:
 
 def _reduce_partial(parts: Sequence[torch.Tensor], schedule: str,
                     shards: ShardStreams,
-                    ks: Sequence[int]) -> List[torch.Tensor]:
-    """All-reduce of the partial results ``parts`` (``parts[m]`` on shard
-    ``ks[m]``), per the plan's schedule: every shard ends with the sum.
+                    ks: Sequence[int]) -> torch.Tensor:
+    """The sum of the partial results ``parts`` (``parts[m]`` on shard
+    ``ks[m]``) on the first shard ``ks[0]``: the one replica of the
+    reference's all-reduce that its ``out_specs`` keeps, in the summation
+    order the plan's schedule gives that shard.
 
-    ``"psum"`` sums on the first shard in index order and copies the sum
-    to the others; ``"ring"`` runs ``n - 1`` hops, each shard receiving
-    its left neighbour's travelling partial; ``"hier"`` runs the ring
-    within contiguous groups of :func:`hier_group_size`, then accumulates
-    the group sums with group-stride hops.  The three differ in summation
-    order only."""
+    ``"psum"`` adds the parts in index order; ``"ring"`` adds them in the
+    order the reference's ring brings them to the first shard, its left
+    neighbour's first (``parts[0] + parts[n-1] + ... + parts[1]``);
+    ``"hier"`` takes that ring sum within each contiguous group of
+    :func:`hier_group_size` shards at the group's first shard, then adds
+    the group sums at the first shard in the reference's group-stride
+    order.  The three differ in summation order only.  Only the first
+    shard's chain runs: ``n - 1`` copies, each from the shard that holds
+    the partial."""
+    if schedule not in ("psum", "ring", "hier"):
+        raise ValueError(f"unknown reduction schedule {schedule!r} "
+                         f"(have psum | ring | hier)")
     n = len(parts)
     if n == 1:
-        return list(parts)
-    if schedule == "psum":
-        with shards.on(ks[0]):
-            total = parts[0]
-            for m in range(1, n):
-                total = total + shards.copy(parts[m], ks[m], ks[0])
-        return [total] + [shards.copy(total, ks[0], ks[m])
-                          for m in range(1, n)]
+        return parts[0]
 
-    def hops(acc, src_of, count):
-        """``count`` hops in which shard ``j`` receives the travelling
-        partial of shard ``src_of(j)`` and adds it to its sum."""
-        p = list(acc)
-        for _ in range(count):
-            p = [shards.copy(p[src_of(j)], ks[src_of(j)], ks[j])
-                 for j in range(n)]
-            for j in range(n):
-                with shards.on(ks[j]):
-                    acc[j] = acc[j] + p[j]
+    def sum_at(head: int, order, vals) -> torch.Tensor:
+        """``vals[head] + vals[order[0]] + ...`` on shard ``ks[head]``."""
+        acc = vals[head]
+        for m in order:
+            add = shards.copy(vals[m], ks[m], ks[head])
+            with shards.on(ks[head]):
+                acc = acc + add
         return acc
 
+    def ring_sum(head: int, size: int) -> torch.Tensor:
+        """The ring sum of ``parts[head:head + size]`` at its head."""
+        return sum_at(head, range(head + size - 1, head, -1), parts)
+
+    if schedule == "psum":
+        return sum_at(0, range(1, n), parts)
     if schedule == "ring":
-        return hops(list(parts), lambda j: (j - 1) % n, n - 1)
-    if schedule == "hier":
-        g = hier_group_size(n)
-        group = hops(list(parts), lambda j: (j // g) * g + (j % g - 1) % g,
-                     g - 1)
-        return hops(group, lambda j: (j - g) % n, n // g - 1)
-    raise ValueError(f"unknown reduction schedule {schedule!r} "
-                     f"(have psum | ring | hier)")
+        return ring_sum(0, n)
+    g = hier_group_size(n)
+    sums = {h: ring_sum(h, g) for h in range(0, n, g)}
+    return sum_at(0, range(n - g, 0, -g), sums)
 
 
 def _traced_dist(fn: Callable, op: str, n_data: int, n_model: int,
@@ -251,8 +250,7 @@ def _fp_local_fn(geo: ConeGeometry, bk) -> Callable:
     return f
 
 
-def dist_forward_project(mesh, geo: ConeGeometry, data_axis: str = "data",
-                         model_axis: str = "model",
+def dist_forward_project(mesh, geo: ConeGeometry,
                          reduce: Optional[str] = None,
                          backend: Optional[str] = None,
                          dominance_split: Optional[bool] = None,
@@ -274,7 +272,7 @@ def dist_forward_project(mesh, geo: ConeGeometry, data_axis: str = "data",
     scattered back to input order.  Unlike the reference, which skips the
     split on its ref backend (its per-angle ``lax.cond`` already runs one
     projector per angle), the port splits on every backend."""
-    grid = _grid(mesh, data_axis, model_axis)
+    grid = _grid(mesh)
     n_data, n_model = grid.shape
     planes = _slab_planes(geo, n_model)
     if comm is not None:
@@ -316,7 +314,7 @@ def dist_forward_project(mesh, geo: ConeGeometry, data_axis: str = "data",
                             shards.take(x_all[rows], k), j * planes)
             kept = [_reduce_partial(parts[i], reduce, shards,
                                     [i * n_model + j
-                                     for j in range(n_model)])[0]
+                                     for j in range(n_model)])
                     for i in range(n_data)]
             shards.join(kept)
             return torch.cat([p.to(dev0) for p in kept])
@@ -391,7 +389,7 @@ def _sharded_bp(bp: Callable, grid: np.ndarray, planes: int, reduce: str,
                     parts[j][i] = bp(shards.take(proj[rows], k),
                                      shards.take(a_all[rows], k), j * planes)
         kept = [_reduce_partial(parts[j], reduce, shards,
-                                [i * n_model + j for i in range(n_data)])[0]
+                                [i * n_model + j for i in range(n_data)])
                 for j in range(n_model)]
         shards.join(kept)
         return torch.cat([s.to(dev0) for s in kept])
@@ -399,9 +397,8 @@ def _sharded_bp(bp: Callable, grid: np.ndarray, planes: int, reduce: str,
 
 
 def dist_backproject(mesh, geo: ConeGeometry, weight: str = "fdk",
-                     data_axis: str = "data", model_axis: str = "model",
-                     backend: Optional[str] = None, reduce: str = "psum",
-                     comm=None) -> Callable:
+                     backend: Optional[str] = None,
+                     reduce: str = "psum") -> Callable:
     """Build a sharded voxel-driven BP: ``g(proj, angles) -> vol``.
 
     Shard ``(i, j)`` updates z slab ``j`` from angle chunk ``i`` (the
@@ -409,10 +406,9 @@ def dist_backproject(mesh, geo: ConeGeometry, weight: str = "fdk",
     reduced over ``data`` and the volume lands on
     ``mesh.devices.flat[0]``.  The voxel-driven BP is dominance-free, so
     no split applies.  ``reduce`` defaults to ``"psum"`` whatever the
-    plan says (``comm`` is accepted for symmetry with the FP), as in the
-    reference, whose serving layer's bit-exact restore relies on that
-    order."""
-    grid = _grid(mesh, data_axis, model_axis)
+    plan says, as in the reference, whose serving layer's bit-exact
+    restore relies on that order."""
+    grid = _grid(mesh)
     n_data, n_model = grid.shape
     planes = _slab_planes(geo, n_model)
     shards = ShardStreams(grid.ravel())
@@ -425,8 +421,6 @@ def dist_backproject(mesh, geo: ConeGeometry, weight: str = "fdk",
 
 
 def dist_backproject_matched(mesh, geo: ConeGeometry,
-                             data_axis: str = "data",
-                             model_axis: str = "model",
                              backend: Optional[str] = None) -> Callable:
     """Exact adjoint BP: ``f(proj, angles) -> vol``.
 
@@ -439,7 +433,7 @@ def dist_backproject_matched(mesh, geo: ConeGeometry,
     monolithic Aᵀ, so CGLS and FISTA keep their guarantees.  The
     reference's ref backend takes ``jax.vjp`` of its mixed-dominance shard
     FP instead; the port groups on every backend."""
-    grid = _grid(mesh, data_axis, model_axis)
+    grid = _grid(mesh)
     n_data, n_model = grid.shape
     planes = _slab_planes(geo, n_model)
     dev0 = grid[0, 0]
@@ -529,12 +523,11 @@ def halo_exchange(slabs: Sequence[torch.Tensor], depth: int,
     return out
 
 
-def model_devices(mesh, data_axis: str = "data",
-                  model_axis: str = "model") -> List[torch.device]:
+def model_devices(mesh) -> List[torch.device]:
     """The devices along the ``model`` axis at data index 0: one shard per
     z slab, for the operators whose data-axis replicas compute the same
     values (the halo-split regularisers)."""
-    return list(_grid(mesh, data_axis, model_axis)[0])
+    return list(_grid(mesh)[0])
 
 
 def split_slabs(vol: torch.Tensor, shards: ShardStreams) -> List[torch.Tensor]:

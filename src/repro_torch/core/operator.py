@@ -92,7 +92,10 @@ class CTOperator:
         # one plan drives every mode: dist mode reads its reduction and
         # dominance-split decisions (n_devices = the mesh's model axis)
         if mode == "dist":
-            n_dev = mesh.shape["model"]
+            from .distributed import (_grid, dist_backproject,
+                                      dist_backproject_matched,
+                                      dist_forward_project)
+            self._data_axis_size, n_dev = _grid(mesh).shape
         elif self.devices:
             n_dev = len(self.devices)
         else:
@@ -100,18 +103,14 @@ class CTOperator:
         self.plan = plan if plan is not None else \
             plan_execution(geo, len(self.angles_np), n_dev, self.memory)
         if mode == "dist":
-            from .distributed import (dist_backproject,
-                                      dist_backproject_matched,
-                                      dist_forward_project)
             comm, name = self.plan.comm, self.backend_name
             self._a = dist_forward_project(mesh, geo, backend=name,
                                            comm=comm)
             self._at = {w: dist_backproject(mesh, geo, weight=w,
-                                            backend=name, comm=comm)
+                                            backend=name)
                         for w in ("fdk", "pmatched", "none")}
             self._at["matched"] = dist_backproject_matched(mesh, geo,
                                                            backend=name)
-            self._data_axis_size = mesh.shape["data"]
 
     @property
     def data_device(self) -> torch.device:

@@ -196,8 +196,7 @@ def _gather(slabs: Sequence[torch.Tensor], shards: ShardStreams,
 
 
 def dist_minimize_tv(mesh, hyper: float, n_iters: int, n_inner: int,
-                     model_axis: str = "model", approx_norm: bool = True,
-                     eps: float = 1e-6, data_axis: str = "data"):
+                     approx_norm: bool = True, eps: float = 1e-6):
     """Halo-split steepest-descent TV minimiser: ``f(vol) -> vol`` on
     ``mesh.devices.flat[0]``.
 
@@ -206,7 +205,7 @@ def dist_minimize_tv(mesh, hyper: float, n_iters: int, n_inner: int,
     slab in place, so the exchange gives it fresh storage.
     ``approx_norm`` selects the paper's no-sync norm estimate."""
     n_outer = -(-n_iters // n_inner)
-    devs = model_devices(mesh, data_axis, model_axis)
+    devs = model_devices(mesh)
     n = len(devs)
     shards = ShardStreams(devs)
 
@@ -227,8 +226,10 @@ def dist_minimize_tv(mesh, hyper: float, n_iters: int, n_inner: int,
                         # the paper's no-sync estimate assumes the gradient
                         # spreads evenly over the shards (SS2.3)
                         sq.append(norm(own) ** 2 * (n if approx_norm else 1))
-                if not approx_norm:
-                    sq = _reduce_partial(sq, "psum", shards, range(n))
+                if not approx_norm:     # every shard needs the sum
+                    total = _reduce_partial(sq, "psum", shards, range(n))
+                    sq = [total] + [shards.copy(total, 0, j)
+                                    for j in range(1, n)]
                 for j, (lo, hi, g) in enumerate(grads):
                     with shards.on(j):
                         gn = torch.sqrt(sq[j]) + 1e-12
@@ -252,8 +253,7 @@ def _masked_rof_step(p, f_pad, mask, gz_mask, tau: float):
 
 
 def dist_rof_denoise(mesh, lam: float, n_iters: int, n_inner: int,
-                     model_axis: str = "model", tau: float = 0.124,
-                     data_axis: str = "data"):
+                     tau: float = 0.124):
     """Halo-split Chambolle/ROF with a persistent dual field: ``f(vol) ->
     vol`` on ``mesh.devices.flat[0]``.
 
@@ -263,7 +263,7 @@ def dist_rof_denoise(mesh, lam: float, n_iters: int, n_inner: int,
     conventions corrupt two halo planes in the first inner iteration."""
     n_outer = -(-n_iters // n_inner)
     depth = n_inner + 1
-    devs = model_devices(mesh, data_axis, model_axis)
+    devs = model_devices(mesh)
     n = len(devs)
     shards = ShardStreams(devs)
 

@@ -235,29 +235,43 @@ def _summed(parts, order):
 
 @pytest.mark.parametrize("schedule", ["psum", "ring", "hier"])
 def test_reduce_partial_follows_the_reference_hops(schedule):
-    """Every shard ends with the sum, in the summation order the
-    reference's hop pattern gives that shard (so shard 0 keeps what the
-    reference's out_specs keeps), in fresh storage."""
+    """The first shard gets the sum in the summation order the reference's
+    hop pattern gives it (what the reference's out_specs keeps), in fresh
+    storage, through ``n - 1`` copies: only its own chain runs."""
     from repro_torch.core.plan import hier_group_size
     for n in (2, 4, 6):
         parts = [torch.from_numpy(_rand(20 + m, (3, 5))) for m in range(n)]
         shards = ShardStreams(["cpu"] * n)
+        copies = []
+        copy = shards.copy
+        shards.copy = lambda t, src, dst: copies.append((src, dst)) or \
+            copy(t, src, dst)
         got = _reduce_partial(parts, schedule, shards, range(n))
         g = hier_group_size(n)
-        for j in range(n):
-            if schedule == "psum":
-                want = _summed(parts, range(n))
-            elif schedule == "ring":
-                want = _summed(parts, _ring_order(j, list(range(n))))
-            else:
-                groups = [_summed(parts, _ring_order(
-                    r, [(r // g) * g + q for q in range(g)]))
-                    for r in ((j - h * g) % n for h in range(n // g))]
-                want = _summed(groups, range(len(groups)))
-            assert torch.equal(got[j], want), (schedule, n, j)
-            assert all(got[j].data_ptr() != p.data_ptr() for p in parts)
+        if schedule == "psum":
+            want = _summed(parts, range(n))
+        elif schedule == "ring":
+            want = _summed(parts, _ring_order(0, list(range(n))))
+        else:
+            groups = [_summed(parts, _ring_order(
+                r, [(r // g) * g + q for q in range(g)]))
+                for r in ((-h * g) % n for h in range(n // g))]
+            want = _summed(groups, range(len(groups)))
+        assert torch.equal(got, want), (schedule, n)
+        assert all(got.data_ptr() != p.data_ptr() for p in parts)
+        assert len(copies) == n - 1, (schedule, n, copies)
     with pytest.raises(ValueError, match="unknown reduction"):
         _reduce_partial(parts, "tree", shards, range(n))
+
+
+def test_operators_take_only_a_data_model_mesh():
+    """The sharded operators read the mesh's (data, model) grid; a mesh
+    with other axes is refused, by the operator too."""
+    pod = make_pod_mesh(2, model_axis=2, devices=CPU8)
+    with pytest.raises(ValueError, match="a \\(data, model\\) mesh"):
+        dist_forward_project(pod, GEO)
+    with pytest.raises(ValueError, match="a \\(data, model\\) mesh"):
+        CTOperator(GEO, ANGLES, mode="dist", mesh=pod)
 
 
 # --------------------------------------------------------------------------
