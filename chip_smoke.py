@@ -22,7 +22,23 @@ CT paths run at N=512 (512^3 volume, 512^2 detector, 512 angles):
   and hier reductions on a 1 x 4 mesh and a 13-angle pad-mask case; the
   halo-split TV (``tv_grad`` per shard) and ROF; streamed CGLS on two
   lanes with the Fig 9 timeline bins and a Chrome trace in
-  ``chiprun_out/`` (and on two GPUs where the machine has them).
+  ``chiprun_out/`` (and on two GPUs where the machine has them);
+* the serving layer (``repro_torch.serve``), ``phase_serve``: ASD-POCS at
+  N=256 and CGLS and OS-SART at N=512 packed on one slot of cuda:0 at a
+  budget set from ``estimate_job_footprint``, a priority-5 CGLS at N=256
+  that fits only by evicting an N=512 job, CGLS at N=512 routed to the
+  streamed path by a 256 MiB budget, and two N=256 jobs on one and then
+  on two slots of the card (a CUDA stream each) under the threaded
+  driver; every job must end COMPLETED and equal its solo run (the
+  algorithm stepped directly on the operator) bit for bit, and the
+  phase prints each job's seconds per step against the direct run's and
+  the reserved bytes against ``max_memory_allocated``;
+* ``phase_serve_durable``: CGLS at N=256 parked by the PreemptionGuard
+  after its first iteration into a snapshot under ``chiprun_out/``,
+  restored by a fresh scheduler and finished bit for bit as an
+  uninterrupted run (snapshot bytes, write seconds, preempt-to-resume
+  seconds), then ``recon.main`` at N=512, mode auto, through the
+  scheduler.
 
 ``bp_matched`` reads each voxel's taps off per-plane tables in shared
 memory; ``bp_voxel`` reads its taps off a window of each angle's
@@ -116,6 +132,7 @@ PATH_KERNELS = {"cgls": ("fp_ray", "bp_matched"), "fdk": ("bp_voxel",),
                 "fista": ("fp_ray", "bp_matched"),
                 "dist": ("fp_ray", "bp_matched", "bp_voxel"),
                 "dist_tv": ("tv_grad",),
+                "serve": ("fp_ray", "bp_matched", "bp_voxel", "tv_grad"),
                 "prefill": ("flash_attention",)}
 DIST_TV_RTOL, DIST_TV_ATOL = 1e-4, 1e-5    # tests/test_regularization.py:33
 DIST_ROF_RTOL, DIST_ROF_ATOL = 1e-3, 1e-5  # tests/test_regularization.py:61
@@ -412,7 +429,7 @@ def phase_main_stream(n: int, n_angles: int, ds, x2_plain, device_bytes):
         raise AssertionError("stream At: prefetch depth changed the bits")
     log(f"  A and At bit-identical at prefetch depth "
         f"{op.plan.comm.prefetch_depth} and 0")
-    return counts
+    return counts, res.rec
 
 
 def phase_bp_voxel_checks(n: int, n_angles: int):
@@ -1127,6 +1144,284 @@ def phase_stream_devices(n: int, n_angles: int, ds, x2_plain, device_bytes,
 
 
 # --------------------------------------------------------------------------
+# the serving layer (repro_torch.serve)
+# --------------------------------------------------------------------------
+
+def check_completed(sched, jids, what: str) -> None:
+    """Every job ended COMPLETED: a kernel that fails to build or launch
+    fails its tenant alone, so the scheduler returns normally and only the
+    record says so."""
+    for jid in jids:
+        rec = sched.records[jid]
+        if rec.status.value != "completed":
+            raise AssertionError(f"{what}: {jid} ({rec.job.algorithm} "
+                                 f"N={rec.job.geo.n_voxel[0]}) ended "
+                                 f"{rec.status.value}: {rec.error}")
+
+
+def check_bits(name, got, want) -> None:
+    import numpy as np
+    want = want.detach().cpu().numpy() if hasattr(want, "detach") else want
+    if got.shape != want.shape or not np.array_equal(got, want):
+        n = int((got != want).sum()) if got.shape == want.shape else -1
+        raise AssertionError(f"{name}: {n} elements differ from the solo "
+                             "run's bits")
+    log(f"  {name}: equal to its solo run bit for bit")
+
+
+def step_seconds(tracer, jid):
+    """The measured seconds of each step of job ``jid``, from the fleet
+    events ``tracer`` recorded."""
+    return [e.attrs["measured_s"] for e in tracer.events("step", job=jid)]
+
+
+def phase_serve(n: int, ds, x_stream, device_bytes, smi):
+    """The serving layer on cuda:0 at full width: four jobs of three
+    algorithms on one slot, an urgent arrival that fits only by evicting
+    an N=512 job; a CGLS job routed to the streamed path by a 256 MiB
+    budget; two slots of one card, each on its own stream, under the
+    threaded driver.  Every job must end COMPLETED and equal its solo run
+    (``reconstruct()``: the algorithm stepped directly on the operator in
+    the same mode) bit for bit."""
+    import torch
+    from repro_torch import kernels, obs
+    from repro_torch.core.geometry import ConeGeometry
+    from repro_torch.core.splitting import MemoryModel
+    from repro_torch.data import make_ct_dataset
+    from repro_torch.launch.recon import _job_params, reconstruct
+    from repro_torch.serve import (AsyncDriver, DevicePool, ReconJob,
+                                   Scheduler, estimate_job_footprint)
+    t_phase = time.perf_counter()
+    n_s = n // 2
+    ds_s = make_ct_dataset(ConeGeometry.nice(n_s), n_s, device="cuda")
+    data = {n: ds, n_s: ds_s}
+
+    def job(alg, size, iters, **kw):
+        _, angles, proj = data[size]
+        return ReconJob(alg, ConeGeometry.nice(size), angles, proj,
+                        n_iter=iters, params=_job_params(alg, len(angles)),
+                        **kw)
+
+    # (name, algorithm, N, iterations, priority); "urgent" arrives after
+    # the first quantum.  The cheapest victim is the latest arrival of the
+    # lowest priority, so ASD-POCS comes first and an N=512 job is it
+    plan = [("asd256", "asd_pocs", n_s, 2, 0), ("cgls512", "cgls", n, 3, 0),
+            ("ossart512", "ossart", n, 2, 0), ("urgent", "cgls", n_s, 2, 5)]
+    fps = {name: estimate_job_footprint(job(alg, size, it, mode="plain"),
+                                        MemoryModel()).bytes_on_device
+           for name, alg, size, it, _ in plan}
+    resident = fps["cgls512"] + fps["ossart512"] + fps["asd256"]
+    mem = MemoryModel(device_bytes=int((resident + fps["urgent"] // 2)
+                                       / 0.95) + 1)
+    if not resident <= mem.usable < resident + fps["urgent"]:
+        raise AssertionError("budget does not force an eviction")
+    log(f"== serving: one slot of cuda:0 at a budget of "
+        f"{mem.device_bytes / 2**30:.3f} GiB (usable {mem.usable} B); "
+        "footprints " + ", ".join(f"{k} {v} B" for k, v in fps.items())
+        + f"; card: {smi}")
+    tracer = obs.Tracer(enabled=True)
+    prev = obs.set_tracer(tracer)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counters()
+    try:
+        sched = Scheduler(pool=DevicePool(1, mem))
+        ids = {}
+        for name, alg, size, it, prio in plan[:3]:
+            ids[name] = sched.submit(job(alg, size, it, mode="plain",
+                                         priority=prio))
+        t0 = time.perf_counter()
+        sched.run(max_quanta=1)
+        resident_bytes = {k: sched.records[j].footprint_bytes
+                          for k, j in ids.items()
+                          if sched.records[j].status.value == "running"}
+        name, alg, size, it, prio = plan[3]
+        ids[name] = sched.submit(job(alg, size, it, mode="plain",
+                                     priority=prio))
+        sched.run()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        check_completed(sched, ids.values(), "one-slot serving")
+        parks = tracer.events("park")
+        by_id = {j: k for k, j in ids.items()}
+        victims = [by_id[e.attrs["job"]] for e in parks]
+        log(f"  victim chosen for the urgent job: {victims} "
+            f"(preemptions {sched.metrics.preemptions}); wall {wall:.2f} s")
+        if len(victims) != 1 or victims[0] not in ("cgls512", "ossart512"):
+            raise AssertionError(f"expected one N={n} victim, got {victims}")
+        log("  reserved bytes of the jobs resident after the first quantum: "
+            + ", ".join(f"{k} {v / 2**30:.3f} GiB"
+                        for k, v in resident_bytes.items())
+            + f" (sum {sum(resident_bytes.values()) / 2**30:.3f} GiB); "
+            f"max_memory_allocated over the run {peak / 2**30:.3f} GiB "
+            f"above the {base / 2**30:.2f} GiB held before it")
+
+        # a CGLS job at N=512 under a 256 MiB budget: routed to stream
+        small = MemoryModel(device_bytes=device_bytes)
+        s2 = Scheduler(pool=DevicePool(1, small))
+        j2 = s2.submit(job("cgls", n, 2))
+        t0 = time.perf_counter()
+        s2.run()
+        wall2 = time.perf_counter() - t0
+        check_completed(s2, [j2], "budget-routed CGLS")
+        if not s2.records[j2].streamed:
+            raise AssertionError("the 256 MiB CGLS job was not streamed")
+        log(f"  CGLS N={n} under {device_bytes / 2**20:.0f} MiB: routed to "
+            f"stream ({s2.records[j2].footprint_bytes} B reserved), "
+            f"{wall2:.2f} s with init, s/step "
+            f"{[round(t, 3) for t in step_seconds(tracer, j2)]}")
+
+        # the same two jobs on one slot, then on two slots of cuda:0,
+        # under the threaded driver
+        walls = {}
+        for n_slots in (1, 2):
+            pool = DevicePool(n_slots, MemoryModel(device_bytes=8 << 30),
+                              devices=["cuda:0"] * n_slots)
+            streams = [s.stream for s in pool.slots]
+            if None in streams or len(set(streams)) != n_slots:
+                raise AssertionError("slots of one card share a stream")
+            s3 = Scheduler(pool=pool)
+            j3 = {"cgls256": s3.submit(job("cgls", n_s, 3, mode="plain")),
+                  "ossart256": s3.submit(job("ossart", n_s, 2,
+                                             mode="plain"))}
+            t0 = time.perf_counter()
+            AsyncDriver(s3).run(timeout=600)
+            walls[n_slots] = time.perf_counter() - t0
+            check_completed(s3, j3.values(), f"{n_slots}-slot serving")
+        if {s3.records[j].device for j in j3.values()} != {0, 1}:
+            raise AssertionError("the two jobs did not run on two slots")
+        log(f"  CGLS and OS-SART at N={n_s} under the threaded driver: "
+            f"{walls[1]:.3f} s on one slot, {walls[2]:.3f} s on two slots "
+            f"of cuda:0 (streams {streams[0].cuda_stream:#x}, "
+            f"{streams[1].cuda_stream:#x})")
+    finally:
+        obs.set_tracer(prev)
+    # launches of the driven runs alone (concurrent workers may lose a
+    # count, so this asks for > 0 of each kernel)
+    counts = kernels.counters()
+    log(f"  counters {counts}")
+    check_counts(counts, "serve", "the serving phase")
+
+    # solo runs: bits, and the scheduler's per-step overhead
+    solo = {"cgls512": ("cgls", n, 3), "ossart512": ("ossart", n, 2),
+            "asd256": ("asd_pocs", n_s, 2), "urgent": ("cgls", n_s, 2),
+            "cgls256": ("cgls", n_s, 3), "ossart256": ("ossart", n_s, 2)}
+    records = {k: sched.records[j] for k, j in ids.items()}
+    records.update({k: s3.records[j] for k, j in j3.items()})
+    for name, (alg, size, it) in solo.items():
+        res = reconstruct(alg, n=size, n_angles=len(data[size][1]),
+                          iters=it, mode="plain", device="cuda",
+                          dataset=data[size], verbose=False)
+        rec = records[name]
+        check_bits(f"{name} ({rec.preemptions} preemptions)", rec.result,
+                   res.rec)
+        if name in ids:
+            sched_s = [round(s, 3) for s in step_seconds(tracer, ids[name])]
+            log(f"    s/step scheduled {sched_s} against direct "
+                f"{[round(s, 3) for s in res.seconds]}")
+        del res
+    check_bits("budget-routed streamed CGLS vs phase_main_stream's",
+               s2.records[j2].result, x_stream)
+    del ds_s, data
+    torch.cuda.empty_cache()
+    log(f"  phase_serve took {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def phase_serve_durable(n: int, smi):
+    """A CGLS job at N=``n`` with durable snapshots under chiprun_out/: a
+    SIGTERM-equivalent (the PreemptionGuard) after its first iteration
+    parks and persists it, a fresh scheduler restores it and finishes bit
+    for bit as an uninterrupted run; then ``recon.main`` at N=2n, mode
+    auto, through the scheduler."""
+    import shutil
+    import threading
+    import torch
+    from repro_torch import kernels
+    from repro_torch.checkpoint import PreemptionGuard
+    from repro_torch.core.geometry import ConeGeometry
+    from repro_torch.core.splitting import MemoryModel
+    from repro_torch.data import make_ct_dataset
+    from repro_torch.launch import recon
+    from repro_torch.serve import (AsyncDriver, DevicePool, ReconJob,
+                                   Scheduler)
+    t_phase = time.perf_counter()
+    iters = 6
+    log(f"== durable serving: CGLS N={n}, {n} angles, {iters} iterations, "
+        f"the guard fired after the first; card: {smi}")
+    geo = ConeGeometry.nice(n)
+    ds = make_ct_dataset(geo, n, device="cuda")
+    _, angles, proj = ds
+    snap = os.path.join(ROOT, "chiprun_out", "serve_snapshot")
+    shutil.rmtree(snap, ignore_errors=True)
+    mem = MemoryModel(device_bytes=4 << 30)
+    kernels.reset_counters()
+    guard = PreemptionGuard(install_handler=False)
+    sched = Scheduler(pool=DevicePool(1, mem), guard=guard,
+                      snapshot_dir=snap)
+    jid = sched.submit(ReconJob("cgls", geo, angles, proj, n_iter=iters))
+    snap_s = []
+    snapshot = sched.snapshot
+
+    def timed_snapshot(ckpt_dir, **kw):
+        t = time.perf_counter()
+        out = snapshot(ckpt_dir, **kw)
+        snap_s.append(time.perf_counter() - t)
+        return out
+    sched.snapshot = timed_snapshot
+    fired = []
+
+    def trigger():
+        while sched.records[jid].iterations_done < 1:
+            time.sleep(0.001)
+        fired.append(time.perf_counter())
+        guard.trigger()
+    killer = threading.Thread(target=trigger, daemon=True)
+    killer.start()
+    AsyncDriver(sched).run(timeout=600)
+    t_parked = time.perf_counter()
+    killer.join(timeout=60)
+    rec = sched.records[jid]
+    if rec.status.value != "preempted" or not snap_s:
+        raise AssertionError(f"the guard did not park the job: "
+                             f"{rec.status.value} {rec.error}")
+    nbytes = sum(os.path.getsize(os.path.join(d, f))
+                 for d, _, fs in os.walk(snap) for f in fs)
+    t_restore = time.perf_counter()
+    fresh = Scheduler(pool=DevicePool(1, mem))
+    if fresh.restore(snap) != 1:
+        raise AssertionError("restore found no parked job")
+    fresh.admit()
+    t_resumed = time.perf_counter()
+    log(f"  parked after {rec.iterations_done} iteration(s); snapshot "
+        f"{nbytes} B written in {snap_s[-1]:.3f} s "
+        f"({nbytes / snap_s[-1] / 1e9:.3f} GB/s); guard to parked "
+        f"{t_parked - fired[0]:.3f} s, restore + re-init "
+        f"{t_resumed - t_restore:.3f} s: preempt-to-resume "
+        f"{t_parked - fired[0] + t_resumed - t_restore:.3f} s")
+    fresh.run()
+    check_completed(fresh, [jid], "restored CGLS")
+    counts = kernels.counters()
+    check_counts(counts, "cgls", "durable serving")
+    res = recon.reconstruct("cgls", n=n, n_angles=n, iters=iters,
+                            mode="plain", device="cuda", dataset=ds,
+                            verbose=False)
+    check_bits(f"restored CGLS (resumed at iteration {rec.iterations_done})",
+               fresh.result(jid), res.rec)
+    del ds, res, sched, fresh
+    torch.cuda.empty_cache()
+    log(f"== recon.main at N={2 * n}, mode auto, through the scheduler")
+    t0 = time.perf_counter()
+    out, rel = recon.main(["--alg", "cgls", "--n", str(2 * n), "--angles",
+                           str(2 * n), "--iters", "2", "--mode", "auto"])
+    if out is None or not 0.0 < rel < 1.0:
+        raise AssertionError(f"recon.main: rel_err {rel}")
+    log(f"  {time.perf_counter() - t0:.1f} s with the data set; "
+        f"phase_serve_durable took {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+# --------------------------------------------------------------------------
 # the LM serving path (gemma2-9b)
 # --------------------------------------------------------------------------
 
@@ -1706,8 +2001,8 @@ def main(argv=None) -> int:
     # kept for phase_dist and phase_stream_devices, in host memory so that
     # the phases between hold what they held before
     x2, x3 = x2.cpu(), x3.cpu()
-    c_cgls_stream = phase_main_stream(n, n_angles, ds, x2,
-                                      device_bytes=256 << 20)
+    c_cgls_stream, x_stream = phase_main_stream(n, n_angles, ds, x2,
+                                                device_bytes=256 << 20)
     c_fdk = phase_fdk(n, n_angles, ds)
     x_sart, c_sart, per_sart = phase_ossart_plain(n, n_angles, ds, iters=2)
     c_sart_stream = phase_ossart_stream(n, n_angles, ds, x_sart,
@@ -1731,8 +2026,12 @@ def main(argv=None) -> int:
                                         device_bytes=256 << 20, smi=smi)
     del x2
     torch.cuda.empty_cache()
+    c_serve = phase_serve(n, ds, x_stream, device_bytes=256 << 20, smi=smi)
+    del x_stream
+    c_serve_durable = phase_serve_durable(n // 2, smi)
     runs = (c_cgls, c_cgls_stream, c_fdk, c_sart, c_sart_stream, c_asd,
-            c_asd_stream, c_fista, c_dist, c_dist_tv, c_stream_dev)
+            c_asd_stream, c_fista, c_dist, c_dist_tv, c_stream_dev,
+            c_serve, c_serve_durable)
     ct_kernels = ("fp_ray", "bp_matched", "bp_voxel", "tv_grad")
     launches = {k: sum(c[k]["launches"] for c in runs) for k in ct_kernels}
     rows = phase_times(n, n_angles, ds, launches,

@@ -152,9 +152,10 @@ class KernelBackend:
            weight: str) -> Callable:
         raise NotImplementedError
 
-    def bp_matched(self, geo: ConeGeometry, *, planes: int,
-                   xdom: bool) -> Callable:
-        """Exact slab adjoint: vjp of the ref slab FP."""
+    def bp_matched(self, geo: ConeGeometry, *, planes: int, xdom: bool,
+                   seg_chunk: Optional[int] = None) -> Callable:
+        """Exact slab adjoint: vjp of the ref slab FP (no scratch, so
+        ``seg_chunk`` is not used)."""
         def build():
             def f(proj_chunk, angles, z0):
                 zeros = torch.zeros((planes,) + tuple(geo.n_voxel[1:]),
@@ -193,11 +194,12 @@ class KernelBackend:
             return f
         return _TABLE.get(key, build)
 
-    def at_matched_mixed(self, geo: ConeGeometry,
-                         mask: np.ndarray) -> Callable:
+    def at_matched_mixed(self, geo: ConeGeometry, mask: np.ndarray,
+                         seg_chunk: Optional[int] = None) -> Callable:
         """Exact adjoint ``f(proj, angles) -> vol`` of the mixed-dominance
         full FP (vjp of the ref FP here; the cuda backend sums its
-        per-dominance matched kernels)."""
+        per-dominance matched kernels, with ``seg_chunk`` angles of
+        scratch)."""
         mask = np.asarray(mask, bool)
         key = ("ref", "at_matched_mixed", geo, mask.tobytes())
 
@@ -301,10 +303,12 @@ class CudaBackend(KernelBackend):
             return f
         return _TABLE.get(("cuda", "bp", geo, planes, weight), build)
 
-    def bp_matched(self, geo: ConeGeometry, *, planes: int,
-                   xdom: bool) -> Callable:
+    def bp_matched(self, geo: ConeGeometry, *, planes: int, xdom: bool,
+                   seg_chunk: Optional[int] = None) -> Callable:
         """Native exact slab adjoint: the matched kernel replaying the ray
-        kernel's fp32 weights (no ref vjp involved)."""
+        kernel's fp32 weights (no ref vjp involved), with ``seg_chunk``
+        angles of scratch (see :func:`~repro_torch.kernels.bp_matched.
+        seg_chunk_for`)."""
         def build():
             from ..kernels.bp_matched import bp_matched
             if not xdom:
@@ -312,25 +316,28 @@ class CudaBackend(KernelBackend):
 
             def f(proj_chunk, angles, z0):
                 ang = angles if xdom else angles - math.pi / 2.0
-                slab = bp_matched(proj_chunk, geo, ang, z0, planes)
+                slab = bp_matched(proj_chunk, geo, ang, z0, planes,
+                                  seg_chunk)
                 if not xdom:
                     # adjoint (= inverse) of the -90 deg scene rotation
                     slab = proj_mod._unrotate_vol_90(slab).contiguous()
                 return slab
             return f
-        return _TABLE.get(("cuda", "bp_matched", geo, planes, xdom), build)
+        return _TABLE.get(("cuda", "bp_matched", geo, planes, xdom,
+                           seg_chunk), build)
 
-    def at_matched_mixed(self, geo: ConeGeometry,
-                         mask: np.ndarray) -> Callable:
+    def at_matched_mixed(self, geo: ConeGeometry, mask: np.ndarray,
+                         seg_chunk: Optional[int] = None) -> Callable:
         """Exact adjoint of the mixed-dominance FP from the per-dominance
         matched kernels: the dominance groups partition the angle rows,
         so summing each group's slab adjoint is the full A^T."""
         mask = np.asarray(mask, bool)
-        key = ("cuda", "at_matched_mixed", geo, mask.tobytes())
+        key = ("cuda", "at_matched_mixed", geo, mask.tobytes(), seg_chunk)
 
         def build():
             nz = geo.n_voxel[0]
-            groups = [(self.bp_matched(geo, planes=nz, xdom=xd), idx, {})
+            groups = [(self.bp_matched(geo, planes=nz, xdom=xd,
+                                       seg_chunk=seg_chunk), idx, {})
                       for xd, idx in ((True, np.nonzero(mask)[0]),
                                       (False, np.nonzero(~mask)[0]))
                       if idx.size]

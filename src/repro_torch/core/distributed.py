@@ -421,7 +421,8 @@ def dist_backproject(mesh, geo: ConeGeometry, weight: str = "fdk",
 
 
 def dist_backproject_matched(mesh, geo: ConeGeometry,
-                             backend: Optional[str] = None) -> Callable:
+                             backend: Optional[str] = None,
+                             seg_chunk: Optional[int] = None) -> Callable:
     """Exact adjoint BP: ``f(proj, angles) -> vol``.
 
     Each shard adjoints its angle chunk's FP restricted to its z slab with
@@ -432,7 +433,9 @@ def dist_backproject_matched(mesh, geo: ConeGeometry,
     summed.  Linearity over disjoint angle sets makes the result the
     monolithic Aᵀ, so CGLS and FISTA keep their guarantees.  The
     reference's ref backend takes ``jax.vjp`` of its mixed-dominance shard
-    FP instead; the port groups on every backend."""
+    FP instead; the port groups on every backend.  ``seg_chunk``: angles
+    of the matched kernel's scratch (see :func:`~repro_torch.kernels.
+    bp_matched.seg_chunk_for`)."""
     grid = _grid(mesh)
     n_data, n_model = grid.shape
     planes = _slab_planes(geo, n_model)
@@ -444,7 +447,8 @@ def dist_backproject_matched(mesh, geo: ConeGeometry,
 
     def fn_for(xdom: bool):
         if xdom not in fns:
-            bm = bk.bp_matched(geo, planes=planes, xdom=xdom)
+            bm = bk.bp_matched(geo, planes=planes, xdom=xdom,
+                               seg_chunk=seg_chunk)
             fns[xdom] = _traced_dist(
                 _sharded_bp(bm, grid, planes, "psum", shards),
                 "dist_bp_matched", n_data, n_model, shards, xdom=xdom)

@@ -34,6 +34,7 @@ from .device import DeviceLike, as_f32, norm, resolve_device
 from .geometry import ConeGeometry, dominant_axis_mask
 from .plan import ExecutionPlan, plan as plan_execution
 from .splitting import MemoryModel
+from ..kernels.bp_matched import seg_chunk_for
 
 
 class CTOperator:
@@ -88,6 +89,8 @@ class CTOperator:
         self._backend = get_backend(self.backend_name)
         self.angles = torch.from_numpy(self.angles_np).to(self.device)
         self.memory = memory or MemoryModel()
+        # bp_matched's scratch goes in the headroom the memory model leaves
+        self._seg_chunk = seg_chunk_for(geo, self.memory)
         self._xdom = dominant_axis_mask(self.angles_np)
         # one plan drives every mode: dist mode reads its reduction and
         # dominance-split decisions (n_devices = the mesh's model axis)
@@ -109,8 +112,8 @@ class CTOperator:
             self._at = {w: dist_backproject(mesh, geo, weight=w,
                                             backend=name)
                         for w in ("fdk", "pmatched", "none")}
-            self._at["matched"] = dist_backproject_matched(mesh, geo,
-                                                           backend=name)
+            self._at["matched"] = dist_backproject_matched(
+                mesh, geo, backend=name, seg_chunk=self._seg_chunk)
 
     @property
     def data_device(self) -> torch.device:
@@ -137,7 +140,8 @@ class CTOperator:
         if self.mode == "plain":
             self._backend.fp_mixed(self.geo, self._xdom)
             if weight == "matched":
-                self._backend.at_matched_mixed(self.geo, self._xdom)
+                self._backend.at_matched_mixed(self.geo, self._xdom,
+                                               self._seg_chunk)
             else:
                 self._backend.bp(self.geo, planes=nz, weight=weight)
         else:
@@ -152,7 +156,8 @@ class CTOperator:
                     continue
                 for xd in present:
                     self._backend.bp_matched(self.geo, planes=z1 - z0,
-                                             xdom=xd)
+                                             xdom=xd,
+                                             seg_chunk=self._seg_chunk)
         if self.backend_name == "cuda" and self.device.type == "cuda":
             from ..kernels import build
             build.build()
@@ -210,7 +215,7 @@ class CTOperator:
             bp = self._backend.bp(self.geo, planes=self.geo.n_voxel[0],
                                   weight=weight)
             return bp(as_f32(proj, self.device), a_dev, 0)
-        at = self._backend.at_matched_mixed(self.geo, mask)
+        at = self._backend.at_matched_mixed(self.geo, mask, self._seg_chunk)
         return at(as_f32(proj, self.device), a_dev)
 
     # ---- spectral norm estimate (power iterations) -------------------------

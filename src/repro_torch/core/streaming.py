@@ -51,6 +51,7 @@ from .geometry import ConeGeometry, dominant_axis_mask
 from .plan import CommSchedule, ExecutionPlan, _bp_comm_steps, _fp_comm_steps
 from .projector import VOXEL_WEIGHTS
 from .splitting import BackwardPlan, ForwardPlan
+from ..kernels.bp_matched import seg_chunk_for
 
 
 class Timeline:
@@ -310,9 +311,13 @@ def stream_backward(proj, geo: ConeGeometry, angles,
     tensor."""
     if weight != "matched" and weight not in VOXEL_WEIGHTS:
         raise ValueError(f"unknown weight {weight!r}")
+    # bp_matched's scratch fits the headroom of an ExecutionPlan's memory
+    # model; a bare BackwardPlan carries none (the kernel's default)
+    seg_chunk = None
     if isinstance(plan, ExecutionPlan):
         if comm is None:
             comm = plan.comm
+        seg_chunk = seg_chunk_for(geo, plan.memory)
         plan = plan.backward
     lanes = _lanes(devices, device, plan.n_devices)
     bk = get_backend(backend, lanes[0].device)
@@ -381,7 +386,8 @@ def stream_backward(proj, geo: ConeGeometry, angles,
                     if weight == "matched":
                         for xdom, sub in subsets[d][ci]:
                             fn = bk.bp_matched(geo, planes=z1 - z0,
-                                               xdom=xdom)
+                                               xdom=xdom,
+                                               seg_chunk=seg_chunk)
                             acc[k].add_(fn(cur_p.index_select(0, sub),
                                            cur_a[sub], z0))
                     else:

@@ -15,7 +15,11 @@ to fp32 summation tolerance.
   per-plane tables in shared memory that a block fills once per angle
   with fp_ray's tap arithmetic (the shared ``joseph_common.cuh``); a pass
   before it scales the projections by each ray's seg into a scratch of
-  :data:`SEG_CHUNK` angles, and the two run chunk by chunk;
+  ``seg_chunk`` angles, and the two run chunk by chunk (the same bits for
+  any chunk).  The scratch lies outside the execution plan, as the
+  reference's kernel has none: a caller with a :class:`MemoryModel` sizes
+  the chunk by :func:`seg_chunk_for` to fit the headroom the model leaves
+  beside its usable bytes;
 * :func:`bp_matched_plain` is the vjp of the plain forward projector,
   taken plane by plane (the forward is a sum of independent per-plane
   terms, so the per-plane vjps are the rows of the whole vjp, and the
@@ -33,13 +37,24 @@ from typing import Optional
 import torch
 
 from ..core.geometry import ConeGeometry
+from ..core.splitting import MemoryModel
 from .fp_ray import (_check_cuda, _plane_sample, _rays, angle_constants,
                      launch, plane_centers)
 
-#: angles of the kernel's scratch (the projections times seg): at most
-#: SEG_CHUNK * Nv * Nu * 4 bytes beside the projections, 8 MiB at a 512^2
-#: detector, a quarter of the streamed backprojection's 32-angle chunk
+#: most angles of the kernel's scratch (the projections times seg): at
+#: most SEG_CHUNK * Nv * Nu * 4 bytes beside the projections, 8 MiB at a
+#: 512^2 detector, a quarter of the streamed backprojection's 32-angle chunk
 SEG_CHUNK = 8
+
+
+def seg_chunk_for(geo: ConeGeometry, memory: MemoryModel) -> int:
+    """Angles of scratch that fit in the headroom ``memory`` leaves beside
+    its usable bytes (``device_bytes - usable``, which no plan spends), at
+    most :data:`SEG_CHUNK`; 0 when not one angle fits, which the kernel
+    refuses."""
+    nv, nu = geo.n_detector
+    headroom = memory.device_bytes - memory.usable
+    return min(SEG_CHUNK, headroom // (nv * nu * 4))
 
 
 def _check_proj(proj: torch.Tensor, geo: ConeGeometry, n_angles: int):
@@ -81,11 +96,18 @@ bp_matched_plain.calls = 0
 
 
 def bp_matched_cuda(proj: torch.Tensor, geo: ConeGeometry, angles,
-                    z0: int = 0,
-                    z_planes: Optional[int] = None) -> torch.Tensor:
+                    z0: int = 0, z_planes: Optional[int] = None,
+                    seg_chunk: Optional[int] = None) -> torch.Tensor:
     """Launch the CUDA exact adjoint on a CUDA ``proj``; see
-    :func:`bp_matched_plain` for the contract."""
+    :func:`bp_matched_plain` for the contract.  ``seg_chunk`` angles of
+    scratch at a time (None: :data:`SEG_CHUNK`)."""
     _check_cuda(proj, "projections")
+    chunk = SEG_CHUNK if seg_chunk is None else int(seg_chunk)
+    if chunk < 1:
+        raise ValueError(
+            f"bp_matched needs a scratch of at least one angle "
+            f"({proj.shape[1] * proj.shape[2] * 4} bytes) beside the "
+            f"budget: raise the memory model's headroom")
     nz, ny, nx = geo.n_voxel
     planes = nz if z_planes is None else int(z_planes)
     consts = angle_constants(geo, torch.as_tensor(angles).to(proj.device))
@@ -98,7 +120,7 @@ def bp_matched_cuda(proj: torch.Tensor, geo: ConeGeometry, angles,
                         device=proj.device)
     proj = proj.contiguous()
     xc = plane_centers(geo, proj.device)
-    gs = proj.new_empty((min(consts.shape[0], SEG_CHUNK),) + proj.shape[1:])
+    gs = proj.new_empty((min(consts.shape[0], chunk),) + proj.shape[1:])
     launch("bp_matched", (proj.data_ptr(), consts.data_ptr(), xc.data_ptr(),
                           out_t.data_ptr(), gs.data_ptr(), gs.shape[0]),
            consts, geo, planes, z0)
@@ -110,9 +132,11 @@ bp_matched_cuda.launches = 0
 
 
 def bp_matched(proj: torch.Tensor, geo: ConeGeometry, angles, z0: int = 0,
-               z_planes: Optional[int] = None) -> torch.Tensor:
+               z_planes: Optional[int] = None,
+               seg_chunk: Optional[int] = None) -> torch.Tensor:
     """Exact adjoint on ``proj``'s device: the CUDA kernel for a CUDA
-    tensor, the plain version for a CPU tensor, and an error otherwise."""
+    tensor (with ``seg_chunk`` angles of scratch), the plain version (no
+    scratch) for a CPU tensor, and an error otherwise."""
     if proj.device.type == "cpu":
         return bp_matched_plain(proj, geo, angles, z0, z_planes)
-    return bp_matched_cuda(proj, geo, angles, z0, z_planes)
+    return bp_matched_cuda(proj, geo, angles, z0, z_planes, seg_chunk)

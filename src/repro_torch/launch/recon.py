@@ -1,14 +1,30 @@
-"""Reconstruction entry point: runs a step-wise algorithm directly.
+"""Reconstruction entry point: a thin client of the serving scheduler.
 
-Port of the reconstruction path of ``repro/launch/recon.py``, without the
-serving layer (it arrives in a later slice): builds the Shepp-Logan data
-set, a :class:`CTOperator` in the requested mode, and steps the algorithm
-from :mod:`repro_torch.core.algorithms.stepwise` to the end.
+Port of ``repro/launch/recon.py``'s single-pod path.  :func:`main` (the
+CLI) builds a :class:`~repro_torch.serve.ReconJob` from its arguments,
+submits it to a :class:`~repro_torch.serve.Scheduler` with one slot
+(``Scheduler(pool=DevicePool(1, ...), guard=PreemptionGuard(),
+snapshot_dir=...)``) and drives it with the threaded
+:class:`~repro_torch.serve.AsyncDriver`, as :func:`serve` does; the
+scheduler picks the execution mode (in-core "plain" vs out-of-core
+"stream") from the planned footprint unless ``--mode`` forces one.
+``--mode dist`` bypasses the scheduler and steps the algorithm over a
+mesh directly, as the reference's ``_run_monolithic`` does.
+``--snapshot-dir`` makes the run restart-safe: a SIGTERM parks the job's
+step-wise checkpoint durably, and re-running the same command resumes it
+bit-identically instead of starting over.  ``--trace out.json`` enables
+the tracer and writes a Chrome trace (per-slab H2D / compute / D2H spans
+and the scheduler's fleet events).
+
+:func:`reconstruct` is the direct path: it steps the algorithm on a
+:class:`CTOperator` in the requested mode without the scheduler (every
+mode, dist included), and returns the per-step seconds and residuals the
+scheduler's own timing is held against.
 
 Usage::
 
     PYTHONPATH=src python -m repro_torch.launch.recon --alg cgls --n 64 \
-        --angles 96 --iters 10 --mode plain
+        --angles 96 --iters 10                  # --mode auto: scheduled
     # out-of-core on a small simulated device budget:
     PYTHONPATH=src python -m repro_torch.launch.recon --alg cgls --n 64 \
         --angles 96 --iters 4 --mode stream --device-bytes 2000000
@@ -21,8 +37,9 @@ Usage::
     # subsets of 20, 20 TV steps; FISTA: L by power iteration, 20 ROF steps):
     PYTHONPATH=src python -m repro_torch.launch.recon --alg asd_pocs \
         --n 64 --angles 96 --iters 2
-    PYTHONPATH=src python -m repro_torch.launch.recon --alg fista --n 64 \
-        --angles 96 --iters 2
+    # restart-safe: SIGTERM parks the job, the same command resumes it
+    PYTHONPATH=src python -m repro_torch.launch.recon --alg cgls --n 64 \
+        --angles 96 --iters 60 --snapshot-dir /tmp/recon-snap
     # sharded over a mesh of every GPU present (angles over "data"):
     PYTHONPATH=src python -m repro_torch.launch.recon --alg ossart --n 64 \
         --angles 96 --iters 2 --mode dist
@@ -37,16 +54,21 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import time
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Tuple
 
+import numpy as np
 import torch
 
+from .. import obs
+from ..checkpoint import PreemptionGuard
 from ..core.algorithms.stepwise import get_algorithm
 from ..core.device import DeviceLike, norm, resolve_device
 from ..core.geometry import ConeGeometry
 from ..core.operator import CTOperator
 from ..core.splitting import MemoryModel
 from ..data import make_ct_dataset
+from ..serve import (AsyncDriver, DevicePool, JobStatus, ReconJob,
+                     Scheduler)
 from .mesh import make_host_mesh
 
 
@@ -75,7 +97,7 @@ def reconstruct(algname: str = "cgls", n: int = 64, n_angles: int = 96,
                 iters: int = 10, mode: str = "plain", device_bytes: int = 0,
                 device: DeviceLike = None, verbose: bool = True,
                 dataset=None, callback: Optional[Callable] = None,
-                mesh=None) -> ReconResult:
+                mesh=None, backend: Optional[str] = None) -> ReconResult:
     """Reconstruct the N^3 Shepp-Logan phantom from ``n_angles``
     projections with ``iters`` iterations of ``algname`` (one step for a
     direct algorithm such as FDK).  ``dataset`` reuses a
@@ -84,7 +106,9 @@ def reconstruct(algname: str = "cgls", n: int = 64, n_angles: int = 96,
     (default, as the reference's driver: a (data, model) = (n, 1) mesh of
     every GPU present, or of ``device`` when that is the CPU); every mode
     backprojects with the algorithm's weight (the matched adjoint for CGLS
-    and FISTA, pmatched otherwise), as the reference's dist mode does."""
+    and FISTA, pmatched otherwise), as the reference's dist mode does.
+    ``backend`` names the kernel backend ("ref" | "cuda"; None: by
+    device).  No scheduler is involved: see :func:`serve`."""
     alg = get_algorithm(algname)
     dev = resolve_device(device)
     geo = ConeGeometry.nice(n)
@@ -96,7 +120,7 @@ def reconstruct(algname: str = "cgls", n: int = 64, n_angles: int = 96,
         mesh = make_host_mesh(
             model_axis=1, devices=None if dev.type == "cuda" else [dev])
     op = CTOperator(geo, angles, mode=mode, bp_weight=alg.default_bp_weight,
-                    mesh=mesh, memory=mem, device=dev)
+                    mesh=mesh, memory=mem, device=dev, backend=backend)
     t_start = time.perf_counter()
     st = alg.init(proj, geo, angles, op=op, **_job_params(algname, n_angles))
     has_r = hasattr(st, "r")
@@ -124,6 +148,62 @@ def reconstruct(algname: str = "cgls", n: int = 64, n_angles: int = 96,
                        seconds=seconds, op=op)
 
 
+def serve(algname: str = "cgls", n: int = 64, n_angles: int = 96,
+          iters: int = 10, mode: str = "auto", device_bytes: int = 0,
+          device: DeviceLike = None, snapshot_dir: str = "",
+          backend: Optional[str] = None, verbose: bool = True
+          ) -> Tuple[Optional[np.ndarray], Optional[float]]:
+    """Reconstruct the N^3 Shepp-Logan phantom through the scheduler: one
+    job on a one-slot pool on ``device``, driven by the
+    :class:`AsyncDriver`.  ``mode`` "auto" lets the scheduler choose plain
+    or stream from the footprint.  With ``snapshot_dir`` a job parked
+    there by an earlier run is resumed instead of a new one submitted.
+    Returns ``(image, rel_err)`` on the host, or ``(None, None)`` when a
+    SIGTERM parked the job."""
+    dev = resolve_device(device)
+    geo = ConeGeometry.nice(n)
+    vol, angles, proj = make_ct_dataset(geo, n_angles, device=dev)
+    mem = (MemoryModel(device_bytes=device_bytes) if device_bytes
+           else MemoryModel())
+    guard = PreemptionGuard()
+    try:
+        sched = Scheduler(pool=DevicePool(1, mem, devices=[dev]),
+                          guard=guard, snapshot_dir=snapshot_dir or None)
+        t0 = time.perf_counter()
+        if snapshot_dir and sched.restore(snapshot_dir):
+            jid = next(iter(sched.records))   # resume the parked job
+            if verbose:
+                done = sched.records[jid].iterations_done
+                print(f"[recon] resuming {jid} from snapshot "
+                      f"({done} iterations already done)")
+        else:
+            jid = sched.submit(ReconJob(
+                algname, geo, angles, proj, n_iter=iters,
+                params=_job_params(algname, n_angles),
+                mode=None if mode == "auto" else mode, backend=backend))
+        AsyncDriver(sched).run()
+    finally:
+        guard.uninstall()
+    record = sched.records[jid]
+    if record.status is JobStatus.PREEMPTED:   # SIGTERM parked it
+        if verbose:
+            where = (f"; snapshot in {snapshot_dir} -- re-run to resume"
+                     if snapshot_dir
+                     else " (no --snapshot-dir: progress lost)")
+            print(f"[recon] preempted after {record.iterations_done}/"
+                  f"{iters} iterations{where}")
+        return None, None
+    rec = sched.result(jid)
+    vol_h = vol.cpu()
+    rel = float(norm(torch.from_numpy(rec) - vol_h) / norm(vol_h))
+    if verbose:
+        print(f"[recon] {algname} N={n} angles={n_angles} "
+              f"iters={record.iterations_done} mode={mode} device={dev} "
+              f"({'stream' if record.streamed else 'plain'}, scheduled): "
+              f"rel_err={rel:.4f} ({time.perf_counter() - t0:.1f}s)")
+    return rec, rel
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--alg", default="cgls",
@@ -132,16 +212,44 @@ def main(argv=None):
     ap.add_argument("--n", type=int, default=64)
     ap.add_argument("--angles", type=int, default=96)
     ap.add_argument("--iters", type=int, default=10)
-    ap.add_argument("--mode", default="plain",
-                    choices=("plain", "stream", "dist"))
+    ap.add_argument("--mode", default="auto",
+                    choices=("auto", "plain", "stream", "dist"),
+                    help="auto: the scheduler picks plain or stream from "
+                         "the planned footprint; dist bypasses it")
+    ap.add_argument("--backend", default="auto",
+                    choices=("auto", "ref", "cuda"),
+                    help="kernel backend: the CUDA kernels (cuda), the "
+                         "plain-PyTorch versions (ref), or by device (auto)")
     ap.add_argument("--device-bytes", type=int, default=0,
-                    help="per-device memory budget the planner splits for")
+                    help="per-device memory budget (placement, streaming)")
+    ap.add_argument("--snapshot-dir", default="",
+                    help="durable checkpoint directory: SIGTERM parks the "
+                         "job there; re-running resumes bit-identically")
+    ap.add_argument("--trace", default="",
+                    help="enable tracing and write a Chrome-trace JSON "
+                         "here (open at https://ui.perfetto.dev)")
     ap.add_argument("--device", default=None, choices=("cuda", "cpu"),
                     help="where to run (default: the card; cpu runs the "
                          "plain-PyTorch versions)")
     args = ap.parse_args(argv)
-    reconstruct(args.alg, args.n, args.angles, args.iters, args.mode,
-                args.device_bytes, device=args.device)
+    backend = None if args.backend == "auto" else args.backend
+    if args.trace:
+        obs.get_tracer().enable()
+    try:
+        if args.mode == "dist":
+            res = reconstruct(args.alg, args.n, args.angles, args.iters,
+                              "dist", args.device_bytes, device=args.device,
+                              backend=backend)
+            return res.rec, res.rel_err
+        return serve(args.alg, args.n, args.angles, args.iters, args.mode,
+                     args.device_bytes, device=args.device,
+                     snapshot_dir=args.snapshot_dir, backend=backend)
+    finally:
+        # written even on a preempted exit: the partial timeline is what
+        # one looks at after a preemption
+        if args.trace:
+            obs.write_chrome_trace(args.trace)
+            print(f"[recon] chrome trace -> {args.trace}")
 
 
 if __name__ == "__main__":

@@ -47,8 +47,12 @@ def cuda():
 def _tiny():
     nz, ny, nx = GEO.n_voxel
     nv, nu = GEO.n_detector
-    return MemoryModel(device_bytes=(nz * ny * nx * 4) // 3
-                       + 12 * len(ANGLES) * nv * nu, usable_fraction=1.0)
+    usable = (nz * ny * nx * 4) // 3 + 12 * len(ANGLES) * nv * nu
+    # those usable bytes (the plan's budget), with the default 5 %
+    # headroom beside them, where bp_matched's scratch goes
+    mem = MemoryModel(device_bytes=math.ceil(usable / 0.95))
+    assert mem.usable == usable
+    return mem
 
 
 def _data(n_angles, seed):

@@ -162,7 +162,10 @@ def test_halo_split_tv_and_rof_on_one_card(cuda):
 def _stream_case():
     geo = ConeGeometry.nice(64)
     angles = circular_angles(24)
-    mem = MemoryModel(device_bytes=400_000, usable_fraction=1.0)
+    # 400000 usable bytes, with the default 5 % headroom beside them,
+    # where bp_matched's scratch goes
+    mem = MemoryModel(device_bytes=421_053)
+    assert mem.usable == 400_000
     return geo, angles, plan(geo, len(angles), 2, mem, angle_chunk_fp=4,
                              angle_chunk_bp=4)
 

@@ -11,6 +11,8 @@ Bands: tv_grad vs plain rtol 1e-5, atol 1e-5 (tests/test_kernels.py:70);
 algorithm iterates 2e-3 (tests/test_adjoint.py:199).
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -39,8 +41,12 @@ def cuda():
 def _tiny():
     nz, ny, nx = GEO.n_voxel
     nv, nu = GEO.n_detector
-    return MemoryModel(device_bytes=(nz * ny * nx * 4) // 3
-                       + 12 * len(ANGLES) * nv * nu, usable_fraction=1.0)
+    usable = (nz * ny * nx * 4) // 3 + 12 * len(ANGLES) * nv * nu
+    # those usable bytes (the plan's budget), with the default 5 %
+    # headroom beside them, where bp_matched's scratch goes
+    mem = MemoryModel(device_bytes=math.ceil(usable / 0.95))
+    assert mem.usable == usable
+    return mem
 
 
 @pytest.mark.parametrize("shape", [(20, 25, 25), (61, 37, 45), (1, 64, 64),

@@ -364,8 +364,9 @@ def test_dist_operator_warmup_and_kernel_config():
     op = CTOperator(GEO, ANGLES, mode="dist", mesh=_mesh(2), backend="cuda")
     op.warmup()
     keys = bk.dispatch_cache_keys()
-    assert ("cuda", "bp_matched", GEO, 16, True) in keys
-    assert ("cuda", "bp_matched", GEO, 16, False) in keys
+    # the last entry: bp_matched's scratch angles under the default budget
+    assert ("cuda", "bp_matched", GEO, 16, True, 8) in keys
+    assert ("cuda", "bp_matched", GEO, 16, False, 8) in keys
     op.warmup("fdk")
     assert ("cuda", "bp", GEO, 16, "fdk") in bk.dispatch_cache_keys()
     assert op.kernel_config() == {}

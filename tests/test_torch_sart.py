@@ -195,8 +195,11 @@ def test_resume_from_a_jax_checkpoint(proj, jax_ossart2, mode):
 @pytest.mark.parametrize("alg,mode", [("ossart", "plain"), ("fdk", "plain"),
                                       ("sirt", "stream"), ("sart", "plain")])
 def test_recon_cli_cpu(capsys, alg, mode):
+    # the scheduler holds a job to the budget: a forced plain job gets
+    # the default one (its footprint is above 40000 B)
+    budget = ["--device-bytes", "40000"] if mode == "stream" else []
     recon.main(["--alg", alg, "--n", "16", "--angles", "12", "--iters", "2",
-                "--mode", mode, "--device-bytes", "40000", "--device", "cpu"])
+                "--mode", mode, "--device", "cpu"] + budget)
     out = capsys.readouterr().out
     steps = 1 if alg == "fdk" else 2
     assert f"[recon] {alg} N=16 angles=12 iters={steps} mode={mode}" in out
