@@ -38,7 +38,16 @@ CT paths run at N=512 (512^3 volume, 512^2 detector, 512 angles):
   restored by a fresh scheduler and finished bit for bit as an
   uninterrupted run (snapshot bytes, write seconds, preempt-to-resume
   seconds), then ``recon.main`` at N=512, mode auto, through the
-  scheduler.
+  scheduler;
+* ``phase_fleet``, the fleet (``repro_torch.serve.pool`` / ``steal`` /
+  ``autoscale``, ``MultiPodDriver``) with its pods sharing cuda:0, each
+  slot on its own stream: four jobs pinned to one pod and stolen by the
+  other, a running CGLS N=512 migrated between pods at a step boundary,
+  an autoscaler growing the fleet under backlog and draining a pod away,
+  a fleet parked by the guard and restored onto the same pod mesh, and
+  ``recon.main --pods 2`` with the Prometheus file, the calibration
+  report and one scrape of the live endpoint; every result equals its
+  solo run bit for bit and recon's rel_err the single pod's.
 
 ``bp_matched`` reads each voxel's taps off per-plane tables in shared
 memory; ``bp_voxel`` reads its taps off a window of each angle's
@@ -133,6 +142,7 @@ PATH_KERNELS = {"cgls": ("fp_ray", "bp_matched"), "fdk": ("bp_voxel",),
                 "dist": ("fp_ray", "bp_matched", "bp_voxel"),
                 "dist_tv": ("tv_grad",),
                 "serve": ("fp_ray", "bp_matched", "bp_voxel", "tv_grad"),
+                "fleet_migrate": ("fp_ray", "bp_matched", "bp_voxel"),
                 "prefill": ("flash_attention",)}
 DIST_TV_RTOL, DIST_TV_ATOL = 1e-4, 1e-5    # tests/test_regularization.py:33
 DIST_ROF_RTOL, DIST_ROF_ATOL = 1e-3, 1e-5  # tests/test_regularization.py:61
@@ -1308,6 +1318,7 @@ def phase_serve(n: int, ds, x_stream, device_bytes, smi):
             "cgls256": ("cgls", n_s, 3), "ossart256": ("ossart", n_s, 2)}
     records = {k: sched.records[j] for k, j in ids.items()}
     records.update({k: s3.records[j] for k, j in j3.items()})
+    solos = {}
     for name, (alg, size, it) in solo.items():
         res = reconstruct(alg, n=size, n_angles=len(data[size][1]),
                           iters=it, mode="plain", device="cuda",
@@ -1315,6 +1326,7 @@ def phase_serve(n: int, ds, x_stream, device_bytes, smi):
         rec = records[name]
         check_bits(f"{name} ({rec.preemptions} preemptions)", rec.result,
                    res.rec)
+        solos[(alg, size, it)] = res.rec.cpu().numpy()
         if name in ids:
             sched_s = [round(s, 3) for s in step_seconds(tracer, ids[name])]
             log(f"    s/step scheduled {sched_s} against direct "
@@ -1325,7 +1337,7 @@ def phase_serve(n: int, ds, x_stream, device_bytes, smi):
     del ds_s, data
     torch.cuda.empty_cache()
     log(f"  phase_serve took {time.perf_counter() - t_phase:.1f} s")
-    return counts
+    return counts, solos
 
 
 def phase_serve_durable(n: int, smi):
@@ -1408,6 +1420,8 @@ def phase_serve_durable(n: int, smi):
                             verbose=False)
     check_bits(f"restored CGLS (resumed at iteration {rec.iterations_done})",
                fresh.result(jid), res.rec)
+    shutil.rmtree(snap, ignore_errors=True)
+    solo = res.rec.cpu().numpy()
     del ds, res, sched, fresh
     torch.cuda.empty_cache()
     log(f"== recon.main at N={2 * n}, mode auto, through the scheduler")
@@ -1418,7 +1432,436 @@ def phase_serve_durable(n: int, smi):
         raise AssertionError(f"recon.main: rel_err {rel}")
     log(f"  {time.perf_counter() - t0:.1f} s with the data set; "
         f"phase_serve_durable took {time.perf_counter() - t_phase:.1f} s")
-    return counts
+    return counts, {("cgls", n, iters): solo}, rel
+
+
+# --------------------------------------------------------------------------
+# the fleet (repro_torch.serve.pool / steal / autoscale, MultiPodDriver)
+# --------------------------------------------------------------------------
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs)
+
+
+class Handoffs:
+    """Times every export and import of a set of pods and weighs what
+    each export wrote to the transfer directory."""
+
+    def __init__(self, pods, transfer_dir: str):
+        self.exports, self.imports = [], []
+        for pod in pods:
+            self.wrap(pod.scheduler, transfer_dir)
+
+    def wrap(self, sched, transfer_dir: str) -> None:
+        export, import_ = sched.export_job, sched.import_job
+
+        def timed_export(jid, tdir):
+            t = time.perf_counter()
+            ok = export(jid, tdir)
+            dt = time.perf_counter() - t
+            if ok:
+                self.exports.append((jid, sched.name, dir_bytes(
+                    os.path.join(tdir, "jobs", jid)), dt))
+            return ok
+
+        def timed_import(tdir, jid, data_refs=None):
+            t = time.perf_counter()
+            out = import_(tdir, jid, data_refs=data_refs)
+            self.imports.append((jid, sched.name,
+                                 time.perf_counter() - t))
+            return out
+        sched.export_job, sched.import_job = timed_export, timed_import
+
+    def report(self) -> None:
+        for (jid, src, nbytes, t_out), (_, dst, t_in) in zip(
+                self.exports, self.imports):
+            log(f"    hand-off {jid} {src} -> {dst}: {nbytes} B, export "
+                f"{t_out:.3f} s ({nbytes / t_out / 1e9:.3f} GB/s), import "
+                f"{t_in:.3f} s ({nbytes / t_in / 1e9:.3f} GB/s)")
+
+
+def track_reserved(pods):
+    """Peak of the bytes each pod's slots have reserved at once."""
+    peak = {p.name: 0 for p in pods}
+    for pod in pods:
+        commit = pod.pool.commit
+
+        def tracked(slot, job_id, nbytes, pod=pod, commit=commit):
+            commit(slot, job_id, nbytes)
+            peak[pod.name] = max(peak[pod.name], sum(
+                s.committed_bytes for s in pod.pool.slots))
+        pod.pool.commit = tracked
+    return peak
+
+
+def pod_report(pods, tracer, peak, base) -> None:
+    """Per pod: steps, steals in and out, migrations in and out, the peak
+    reserved bytes; and the card's max_memory_allocated over the run."""
+    import torch
+    migrations = tracer.events("migrate")
+    for pod in pods:
+        m = pod.scheduler.metrics
+        log(f"    {pod.name}: {m.steps} steps, stolen in {m.stolen_in} / "
+            f"out {m.stolen_out}, migrated in "
+            f"{sum(e.attrs['dst'] == pod.name for e in migrations)} / out "
+            f"{sum(e.attrs['src'] == pod.name for e in migrations)}, "
+            f"reserved peak {peak.get(pod.name, 0) / 2**30:.3f} GiB")
+    log(f"    reserved peaks summed {sum(peak.values()) / 2**30:.3f} GiB "
+        f"against max_memory_allocated "
+        f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.3f} GiB "
+        f"above the {base / 2**30:.2f} GiB held before")
+
+
+def check_fleet_done(mps, jids, what: str) -> None:
+    for jid in jids:
+        rec = mps.record(jid)
+        if rec.status.value != "completed":
+            raise AssertionError(f"{what}: {jid} ({rec.job.algorithm} "
+                                 f"N={rec.job.geo.n_voxel[0]}) ended "
+                                 f"{rec.status.value}: {rec.error}")
+
+
+def phase_fleet(n: int, ds, solos, rel_single, smi):
+    """The fleet on cuda:0 at full width: pods share the card, each slot on
+    a CUDA stream of its own.  Work stealing under the MultiPodDriver,
+    live migration of a running N=512 CGLS job, an autoscaler growing and
+    shrinking the fleet, a durable fleet drained by the guard and restored
+    onto the same pod mesh, and ``recon.main --pods 2`` with the
+    exporters.  Every result equals its solo run bit for bit (``solos``:
+    the images of phase_serve and phase_serve_durable); each sub-run
+    launches its kernels (and no plain version)."""
+    import shutil
+    import threading
+    import urllib.request
+    import torch
+    from repro_torch import kernels, obs
+    from repro_torch.checkpoint import PreemptionGuard
+    from repro_torch.core.geometry import ConeGeometry
+    from repro_torch.core.splitting import MemoryModel
+    from repro_torch.data import make_ct_dataset
+    from repro_torch.launch import recon
+    from repro_torch.launch.mesh import make_pod_mesh, pod_device_groups
+    from repro_torch.launch.recon import _job_params, reconstruct
+    from repro_torch.serve import (Autoscaler, AutoscalePolicy,
+                                   MultiPodDriver, MultiPodScheduler, Pod,
+                                   PodSpec, ReconJob,
+                                   estimate_job_footprint, migrate_once)
+    from repro_torch.serve.steal import fleet_units
+    t_phase = time.perf_counter()
+    n_s = n // 2
+    t0 = time.perf_counter()
+    ds_s = make_ct_dataset(ConeGeometry.nice(n_s), n_s, device="cuda")
+    data = {n: ds, n_s: ds_s}
+    log(f"== fleet: pods on cuda:0, a CUDA stream per slot; N={n_s} data "
+        f"set {time.perf_counter() - t0:.1f} s; card: {smi}")
+    out_dir = os.path.join(ROOT, "chiprun_out", "fleet")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    totals = {k: {"launches": 0, "plain_calls": 0}
+              for k in ("fp_ray", "bp_matched", "bp_voxel", "tv_grad")}
+
+    def job(alg, size, iters, **kw):
+        _, angles, proj = data[size]
+        return ReconJob(alg, ConeGeometry.nice(size), angles, proj,
+                        n_iter=iters, params=_job_params(alg, len(angles)),
+                        **kw)
+
+    def solo(alg, size, iters):
+        key = (alg, size, iters)
+        if key not in solos:
+            res = reconstruct(alg, n=size, n_angles=len(data[size][1]),
+                              iters=iters, mode="plain", device="cuda",
+                              dataset=data[size], verbose=False)
+            solos[key] = res.rec.cpu().numpy()
+        return solos[key]
+
+    def sub_run(path: str, what: str):
+        """Counters and the peak set to 0 before a sub-run; returns a
+        closure that checks and adds them after it."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_counters()
+
+        def done():
+            counts = kernels.counters()
+            log(f"    counters {counts}")
+            check_counts(counts, path, what)
+            for k in totals:
+                totals[k]["launches"] += counts[k]["launches"]
+            return base
+        return done
+
+    tracer = obs.Tracer(enabled=True)
+    prev = obs.set_tracer(tracer)
+    try:
+        # ---- 1. work stealing: four jobs pinned to pod0 -------------------
+        plan = [("cgls512", "cgls", n, 3), ("ossart512", "ossart", n, 2),
+                ("asd256", "asd_pocs", n_s, 2), ("cgls256", "cgls", n_s, 6)]
+        fps = {name: estimate_job_footprint(job(alg, size, it, mode="plain"),
+                                            MemoryModel()).bytes_on_device
+               for name, alg, size, it in plan}
+        # one N=512 job resident a pod at a time: the rest park behind it
+        usable = max(fps.values()) + min(fps.values()) // 2
+        mem = MemoryModel(device_bytes=int(usable / 0.95) + 1)
+        log(f"-- steal: {', '.join(f'{k} {v} B' for k, v in fps.items())}; "
+            f"two pods of {mem.device_bytes / 2**30:.3f} GiB, all four "
+            "pinned to pod0")
+        xfer = os.path.join(out_dir, "steal_xfer")
+        pods = [Pod(PodSpec(f"pod{i}", memory=mem)) for i in range(2)]
+        mps = MultiPodScheduler(pods, transfer_dir=xfer)
+        hand = Handoffs(pods, xfer)
+        peak = track_reserved(pods)
+        done = sub_run("serve", "the stealing fleet")
+        ids = {name: mps.submit(job(alg, size, it, mode="plain"), pod=0)
+               for name, alg, size, it in plan}
+        t0 = time.perf_counter()
+        MultiPodDriver(mps).run(timeout=600)
+        wall = time.perf_counter() - t0
+        check_fleet_done(mps, ids.values(), "stealing fleet")
+        base = done()
+        stolen = [k for k, j in ids.items() if mps.owner(j).name == "pod1"]
+        log(f"  {wall:.2f} s; stolen onto pod1: {stolen} (steal passes "
+            f"moved {mps.stolen_jobs})")
+        if not stolen:
+            raise AssertionError("no job was stolen onto pod1")
+        hand.report()
+        pod_report(pods, tracer, peak, base)
+        for name, alg, size, it in plan:
+            steps = [round(t, 3) for t in step_seconds(tracer, ids[name])]
+            check_bits(f"{name} on {mps.owner(ids[name]).name} (s/step "
+                       f"{steps})", mps.result(ids[name]),
+                       solo(alg, size, it))
+        del mps, pods
+
+        # ---- 2. live migration of a running CGLS N=512 --------------------
+        log("-- migrate: CGLS N=512 running on pod0 (an OS-SART N=512 "
+            "parked behind it) moves to pod1 after its first step")
+        xfer = os.path.join(out_dir, "migrate_xfer")
+        pods = [Pod(PodSpec(f"pod{i}", memory=mem)) for i in range(2)]
+        mps = MultiPodScheduler(pods, steal=False, transfer_dir=xfer)
+        hand = Handoffs(pods, xfer)
+        peak = track_reserved(pods)
+        done = sub_run("fleet_migrate", "the migrating fleet")
+        mig = mps.submit(job("cgls", n, 3, mode="plain"), pod=0)
+        parked = mps.submit(job("ossart", n, 2, mode="plain"), pod=0)
+        pods[0].scheduler.step_quantum()       # admit, one iteration
+        if mps.record(mig).iterations_done != 1:
+            raise AssertionError("the CGLS job did not take one step")
+        t0 = time.perf_counter()
+        moved = migrate_once(pods[0], pods[1], xfer,
+                             units=fleet_units(pods))
+        t_mig = time.perf_counter() - t0
+        if moved != mig:
+            raise AssertionError(f"migrate_once moved {moved}, not {mig}")
+        streams = [p.pool.slots[0].stream for p in pods]
+        if not all(s.query() for s in streams):
+            raise AssertionError("a slot's stream is busy after migrating")
+        MultiPodDriver(mps).run(timeout=600)
+        check_fleet_done(mps, [mig, parked], "migrating fleet")
+        base = done()
+        (_, _, nbytes, t_out), (_, _, t_in) = hand.exports[0], \
+            hand.imports[0]
+        reinit = [e.attrs["measured_s"]
+                  for e in tracer.events("admit", job=mig)
+                  if e.attrs.get("pod") == "pod1"]
+        log(f"  migrated {mig} at iteration 1 in {t_mig:.3f} s: export "
+            f"{nbytes} B in {t_out:.3f} s ({nbytes / t_out / 1e9:.3f} "
+            f"GB/s), import {t_in:.3f} s ({nbytes / t_in / 1e9:.3f} GB/s), "
+            f"re-init on pod1 {reinit[0]:.3f} s; both slots' streams idle "
+            "after it")
+        pod_report(pods, tracer, peak, base)
+        steps = [(e.attrs["pod"], round(e.attrs["measured_s"], 3))
+                 for e in tracer.events("step", job=mig)]
+        check_bits(f"migrated CGLS N={n} (s/step by pod {steps})",
+                   mps.result(mig), solo("cgls", n, 3))
+        check_bits(f"OS-SART N={n} behind it", mps.result(parked),
+                   solo("ossart", n, 2))
+        del mps, pods
+
+        # ---- 3. autoscaling: scale up under backlog, drain to scale down --
+        mem_s = MemoryModel(device_bytes=int(
+            estimate_job_footprint(job("cgls", n_s, 6, mode="plain"),
+                                   MemoryModel()).bytes_on_device
+            * 1.5 / 0.95) + 1)                 # one N=256 CGLS at a time
+        log(f"-- autoscale: one seed pod of {mem_s.device_bytes / 2**20:.0f}"
+            f" MiB, four CGLS N={n_s} (6 iterations), a template pod of the "
+            "same budget")
+        xfer = os.path.join(out_dir, "autoscale_xfer")
+        mps = MultiPodScheduler([Pod(PodSpec("seed", memory=mem_s))],
+                                transfer_dir=xfer)
+        load = {"v": 10.0}
+        asc = Autoscaler(
+            mps, [PodSpec("burst", memory=mem_s)],
+            AutoscalePolicy(scale_up_backlog_seconds=0.5,
+                            scale_down_backlog_seconds=0.05,
+                            down_window_seconds=0.0, cooldown_seconds=0.0,
+                            min_pods=1, max_pods=2, prewarm=True),
+            load_fn=lambda pods: load["v"])
+        done = sub_run("cgls", "the autoscaled fleet")
+        jids = [mps.submit(job("cgls", n_s, 6, mode="plain"))
+                for _ in range(4)]
+        drv = MultiPodDriver(mps, autoscaler=asc)
+        t0 = time.monotonic()
+        drv.start()
+        try:
+            deadline = time.monotonic() + 300
+            while not any(p.name != "seed" and p.scheduler.metrics.steps
+                          for p in mps.pods_snapshot()):
+                if (drv.error is not None or mps.idle
+                        or time.monotonic() > deadline):
+                    raise AssertionError(
+                        f"the scaled-up pod stepped no job: {drv.error}")
+                time.sleep(0.001)
+            t_step = time.monotonic() - t0
+            attached = sorted(d.scheduler.name for d in drv.drivers)
+        finally:
+            drv.stop()
+        if drv.error is not None:
+            raise AssertionError(f"fleet driver: {drv.error!r}")
+        up = [e for e in asc.events if e.direction == "up"]
+        burst = next(p for p in mps.pods if p.name == up[0].pod)
+        log(f"  scale-up to {up[0].pod} at load {up[0].load} decided "
+            f"{up[0].t - t0:.3f} s after the driver started; drivers "
+            f"{attached}; its first step done {t_step:.3f} s in "
+            f"({burst.scheduler.metrics.steps} steps at the stop)")
+        load["v"] = 0.0                        # the backlog clears
+        t0 = time.perf_counter()
+        ev = asc.step()
+        if ev is None or ev.direction != "down" or not asc.drained_jobs:
+            raise AssertionError(f"no drain moved a parked job: {ev}, "
+                                 f"{asc.drained_jobs}")
+        log(f"  scale-down: drained {ev.pod} in "
+            f"{time.perf_counter() - t0:.3f} s, moved "
+            f"{asc.drained_jobs} to {[p.name for p in mps.pods]}")
+        MultiPodDriver(mps).run(timeout=600)
+        check_fleet_done(mps, jids, "autoscaled fleet")
+        done()
+        log("  scale events: "
+            f"{[(e.direction, e.pod, e.n_pods) for e in asc.events]}")
+        want = solo("cgls", n_s, 6)
+        for j in jids:
+            check_bits(f"{j} (ran on {mps.owner(j).name})", mps.result(j),
+                       want)
+        del mps, asc, drv
+
+        # ---- 4. a durable fleet: the guard, drain_fleet, restore_fleet ----
+        root = os.path.join(out_dir, "fleet_snapshot")
+        mesh = make_pod_mesh(2, devices=["cuda:0"] * 2)
+        guard = PreemptionGuard(install_handler=False)
+        pods = [Pod(PodSpec(f"pod{i}", memory=mem_s, devices=tuple(g)),
+                    guard=guard)
+                for i, g in enumerate(pod_device_groups(mesh))]
+        mps = MultiPodScheduler(pods, steal=False, snapshot_root=root)
+        done = sub_run("cgls", "the durable fleet")
+        jids = [mps.submit(job("cgls", n_s, 6, mode="plain"))
+                for _ in range(2)]
+
+        def trigger():
+            while max(mps.record(j).iterations_done for j in jids) < 1:
+                time.sleep(0.001)
+            guard.trigger()
+        killer = threading.Thread(target=trigger, daemon=True)
+        killer.start()
+        MultiPodDriver(mps).run(timeout=600)
+        killer.join(timeout=60)
+        progress = {j: mps.record(j).iterations_done for j in jids}
+        if not all(mps.record(j).status.value == "preempted"
+                   for j in jids):
+            raise AssertionError(
+                "the guard did not park the fleet: "
+                + str({j: mps.record(j).status.value for j in jids}))
+        nbytes = dir_bytes(root)
+        t0 = time.perf_counter()
+        restored = MultiPodScheduler.restore_fleet(root, mesh=mesh)
+        t_restore = time.perf_counter() - t0
+        devs = {str(s.device) for p in restored.pods for s in p.pool.slots}
+        if sorted(restored.restored_jobs) != sorted(jids) or \
+                devs != {"cuda:0"}:
+            raise AssertionError(f"restore_fleet: {restored.restored_jobs} "
+                                 f"on {devs}")
+        log(f"  parked at iterations {sorted(progress.values())}; fleet "
+            f"snapshot {nbytes} B; restore_fleet onto the pod mesh "
+            f"{t_restore:.3f} s (pins {sorted(devs)})")
+        MultiPodDriver(restored).run(timeout=600)
+        check_fleet_done(restored, jids, "restored fleet")
+        done()
+        for j in jids:
+            check_bits(f"restored {j} (parked at {progress[j]})",
+                       restored.result(j), want)
+        del mps, restored, pods
+
+        # ---- 5. recon.main --pods 2 with the exporters --------------------
+        del ds_s, data
+        torch.cuda.empty_cache()
+        snap = os.path.join(out_dir, "recon_snapshot")
+        prom = os.path.join(out_dir, "recon.prom")
+        # one scrape of the live endpoint while recon runs: sent as the
+        # server starts, and the server's stop waits for its answer
+        scrapes, scrapers = [], []
+        start, stop = obs.MetricsServer.start, obs.MetricsServer.stop
+
+        def start_and_scrape(self):
+            port = start(self)
+
+            def scrape():
+                try:
+                    with urllib.request.urlopen(self.url, timeout=60) as r:
+                        scrapes.append((r.status, r.read().decode()))
+                except Exception as e:
+                    scrapes.append((None, repr(e)))
+            scrapers.append(threading.Thread(target=scrape, daemon=True))
+            scrapers[-1].start()
+            return port
+
+        def join_and_stop(self):
+            for t in scrapers:
+                t.join(timeout=60)
+            stop(self)
+        obs.MetricsServer.start = start_and_scrape
+        obs.MetricsServer.stop = join_and_stop
+        obs.set_tracer(obs.Tracer())
+        done = sub_run("cgls", "recon.main --pods 2")
+        t0 = time.perf_counter()
+        try:
+            _, rel = recon.main(["--alg", "cgls", "--n", str(n), "--angles",
+                                 str(n), "--iters", "2", "--pods", "2",
+                                 "--snapshot-dir", snap, "--prometheus",
+                                 prom, "--calibration-report",
+                                 "--metrics-port", "0"])
+        finally:
+            obs.MetricsServer.start, obs.MetricsServer.stop = start, stop
+            obs.set_tracer(tracer)
+        done()
+        with open(prom) as f:
+            text = f.read()
+        families = ("repro_calibration_samples_total",
+                    "repro_slo_attainment_ratio",
+                    "repro_memory_margin_ratio")
+        missing = [f for f in families if f"# TYPE {f}" not in text]
+        if missing or len(scrapes) != 1 or scrapes[0][0] != 200 or \
+                "repro_slo_attainment_ratio" not in scrapes[0][1]:
+            raise AssertionError(f"exporters: missing {missing}, scrapes "
+                                 f"{[(c, t[:80]) for c, t in scrapes]}")
+        if rel != rel_single:
+            raise AssertionError(f"recon --pods 2 rel_err {rel!r} against "
+                                 f"the single pod's {rel_single!r}")
+        log(f"  recon.main --pods 2: rel_err {rel:.6f} equal to the single "
+            f"pod's; {time.perf_counter() - t0:.1f} s with the data set; "
+            f"one live scrape ({len(scrapes[0][1])} B), the Prometheus file "
+            f"{len(text)} B with the calibration, SLO and memory-margin "
+            "families")
+    finally:
+        obs.set_tracer(prev)
+        for name in os.listdir(out_dir):
+            if name != "recon.prom":
+                shutil.rmtree(os.path.join(out_dir, name),
+                              ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"  phase_fleet took {time.perf_counter() - t_phase:.1f} s; "
+        f"launches {({k: v['launches'] for k, v in totals.items()})}")
+    return totals
 
 
 # --------------------------------------------------------------------------
@@ -2026,12 +2469,17 @@ def main(argv=None) -> int:
                                         device_bytes=256 << 20, smi=smi)
     del x2
     torch.cuda.empty_cache()
-    c_serve = phase_serve(n, ds, x_stream, device_bytes=256 << 20, smi=smi)
+    c_serve, solos = phase_serve(n, ds, x_stream, device_bytes=256 << 20,
+                                 smi=smi)
     del x_stream
-    c_serve_durable = phase_serve_durable(n // 2, smi)
+    c_serve_durable, solo_durable, rel_single = phase_serve_durable(n // 2,
+                                                                    smi)
+    solos.update(solo_durable)
+    c_fleet = phase_fleet(n, ds, solos, rel_single, smi)
+    del solos
     runs = (c_cgls, c_cgls_stream, c_fdk, c_sart, c_sart_stream, c_asd,
             c_asd_stream, c_fista, c_dist, c_dist_tv, c_stream_dev,
-            c_serve, c_serve_durable)
+            c_serve, c_serve_durable, c_fleet)
     ct_kernels = ("fp_ray", "bp_matched", "bp_voxel", "tv_grad")
     launches = {k: sum(c[k]["launches"] for c in runs) for k in ct_kernels}
     rows = phase_times(n, n_angles, ds, launches,

@@ -1,8 +1,8 @@
 """Reconstruction entry point: a thin client of the serving scheduler.
 
-Port of ``repro/launch/recon.py``'s single-pod path.  :func:`main` (the
-CLI) builds a :class:`~repro_torch.serve.ReconJob` from its arguments,
-submits it to a :class:`~repro_torch.serve.Scheduler` with one slot
+Port of ``repro/launch/recon.py``.  :func:`main` (the CLI) builds a
+:class:`~repro_torch.serve.ReconJob` from its arguments, submits it to
+a :class:`~repro_torch.serve.Scheduler` with one slot
 (``Scheduler(pool=DevicePool(1, ...), guard=PreemptionGuard(),
 snapshot_dir=...)``) and drives it with the threaded
 :class:`~repro_torch.serve.AsyncDriver`, as :func:`serve` does; the
@@ -12,9 +12,27 @@ scheduler picks the execution mode (in-core "plain" vs out-of-core
 mesh directly, as the reference's ``_run_monolithic`` does.
 ``--snapshot-dir`` makes the run restart-safe: a SIGTERM parks the job's
 step-wise checkpoint durably, and re-running the same command resumes it
-bit-identically instead of starting over.  ``--trace out.json`` enables
-the tracer and writes a Chrome trace (per-slab H2D / compute / D2H spans
-and the scheduler's fleet events).
+bit-identically instead of starting over.  ``--pods N`` serves the job
+through a fleet of N one-slot pods instead (:class:`~repro_torch.serve.
+MultiPodScheduler` + :class:`~repro_torch.serve.MultiPodDriver`: routing
+and work stealing); with ``--snapshot-dir`` the *fleet* is durable — each
+pod snapshots into its own subdirectory, a ``fleet.json`` manifest
+records the membership, and a re-run rebuilds the fleet with
+``MultiPodScheduler.restore_fleet`` and resumes bit-identically.  Pods lie
+on ``--device`` (by default all on the current card, each slot on a CUDA
+stream of its own); ``--pin-devices`` pins them to the GPUs present
+through a pod mesh, and the restore hands the same mesh back to
+``restore_fleet`` to re-derive the pins the manifest does not record.
+
+``--trace out.json`` enables the tracer and writes a Chrome trace (per-slab
+H2D / compute / D2H spans and the scheduler's fleet events);
+``--prometheus out.prom`` writes a Prometheus text snapshot at exit (the
+tracer's phase totals and counters plus the calibration, SLO and
+memory-margin families); ``--metrics-port N`` serves the same exposition
+live over HTTP for the duration of the run (``/metrics``; 0 picks a free
+port), and ``--calibration-report`` prints the modeled-vs-measured
+calibration ledger, the memory margins and the SLO report as JSON at exit.
+Every one of them turns the tracer on.
 
 :func:`reconstruct` is the direct path: it steps the algorithm on a
 :class:`CTOperator` in the requested mode without the scheduler (every
@@ -40,6 +58,10 @@ Usage::
     # restart-safe: SIGTERM parks the job, the same command resumes it
     PYTHONPATH=src python -m repro_torch.launch.recon --alg cgls --n 64 \
         --angles 96 --iters 60 --snapshot-dir /tmp/recon-snap
+    # a fleet of two pods on the card, durable, with the exporters:
+    PYTHONPATH=src python -m repro_torch.launch.recon --alg cgls --n 64 \
+        --angles 96 --iters 10 --pods 2 --snapshot-dir /tmp/fleet-snap \
+        --prometheus /tmp/recon.prom --calibration-report --metrics-port 0
     # sharded over a mesh of every GPU present (angles over "data"):
     PYTHONPATH=src python -m repro_torch.launch.recon --alg ossart --n 64 \
         --angles 96 --iters 2 --mode dist
@@ -53,6 +75,8 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
+import os
 import time
 from typing import Callable, List, Optional, Tuple
 
@@ -67,9 +91,10 @@ from ..core.geometry import ConeGeometry
 from ..core.operator import CTOperator
 from ..core.splitting import MemoryModel
 from ..data import make_ct_dataset
-from ..serve import (AsyncDriver, DevicePool, JobStatus, ReconJob,
-                     Scheduler)
-from .mesh import make_host_mesh
+from ..serve import (AsyncDriver, DevicePool, JobStatus, MultiPodDriver,
+                     MultiPodScheduler, Pod, PodSpec, ReconJob, Scheduler)
+from ..serve.pool import FLEET_MANIFEST
+from .mesh import make_host_mesh, make_pod_mesh, pod_device_groups
 
 
 @dataclasses.dataclass
@@ -204,6 +229,119 @@ def serve(algname: str = "cgls", n: int = 64, n_angles: int = 96,
     return rec, rel
 
 
+def serve_fleet(algname: str = "cgls", n: int = 64, n_angles: int = 96,
+                iters: int = 10, mode: str = "auto", device_bytes: int = 0,
+                device: DeviceLike = None, snapshot_dir: str = "",
+                backend: Optional[str] = None, verbose: bool = True,
+                pods: int = 2, pin_devices: bool = False
+                ) -> Tuple[Optional[np.ndarray], Optional[float]]:
+    """:func:`serve` through a fleet of ``pods`` one-slot pods (``recon
+    --pods``): the job is routed to the pod whose topology models the
+    cheapest completion and the :class:`MultiPodDriver` runs every pod
+    (idle pods steal parked work).  Pods lie on ``device``, or with
+    ``pin_devices`` on the GPUs present split into ``pods`` groups of a
+    pod mesh.  With ``snapshot_dir`` the fleet is durable: a fleet
+    snapshot left there by an earlier run (``fleet.json``) is restored
+    onto the same mesh and its job resumed instead of a new one
+    submitted."""
+    if mode == "dist":
+        raise ValueError("--mode dist bypasses the scheduler and cannot be "
+                         "combined with --pods")
+    dev = resolve_device(device)
+    mesh = None
+    if pin_devices:
+        if dev.type != "cuda":
+            raise ValueError("--pin-devices pins pods to the GPUs present; "
+                             f"it cannot be combined with --device {dev}")
+        # every GPU, split into `pods` groups along a leading "pod" axis;
+        # on restore the same mesh re-derives the pins
+        mesh = make_pod_mesh(pods)
+    elif dev.type != "cuda":
+        mesh = make_pod_mesh(pods, devices=[dev] * pods)
+    geo = ConeGeometry.nice(n)
+    vol, angles, proj = make_ct_dataset(geo, n_angles, device=dev)
+    mem = (MemoryModel(device_bytes=device_bytes) if device_bytes
+           else MemoryModel())
+    root = snapshot_dir or None
+    guard = PreemptionGuard()
+    try:
+        if root and os.path.isfile(os.path.join(root, FLEET_MANIFEST)):
+            # a previous run left a fleet snapshot: rebuild membership +
+            # parked jobs and resume them instead of starting over
+            mps = MultiPodScheduler.restore_fleet(root, guard=guard,
+                                                  mesh=mesh)
+        else:
+            groups = (pod_device_groups(mesh) if mesh is not None
+                      else [None] * pods)
+            mps = MultiPodScheduler(
+                [Pod(PodSpec(f"pod{i}", memory=mem,
+                             devices=None if g is None else tuple(g)),
+                     guard=guard) for i, g in enumerate(groups)],
+                snapshot_root=root)
+        t0 = time.perf_counter()
+        if mps.restored_jobs:
+            jid = mps.restored_jobs[0]
+            if verbose:
+                done = mps.record(jid).iterations_done
+                print(f"[recon] resuming {jid} on a restored "
+                      f"{len(mps.pods)}-pod fleet "
+                      f"({done} iterations already done)")
+        else:
+            jid = mps.submit(ReconJob(
+                algname, geo, angles, proj, n_iter=iters,
+                params=_job_params(algname, n_angles),
+                mode=None if mode == "auto" else mode, backend=backend))
+        # periodic per-pod snapshots make a kill -9 recoverable too
+        MultiPodDriver(mps, snapshot_every_seconds=1.0 if root else 0.0
+                       ).run()
+    finally:
+        guard.uninstall()
+    record = mps.record(jid)
+    # parked states only: a FAILED job falls through to mps.result() and
+    # raises its real error
+    if record.status in (JobStatus.PREEMPTED, JobStatus.PENDING):
+        if verbose:
+            where = (f"; fleet snapshot in {root} -- re-run to resume"
+                     if root else " (no --snapshot-dir: progress lost)")
+            print(f"[recon] fleet preempted after "
+                  f"{record.iterations_done}/{iters} iterations{where}")
+        return None, None
+    rec = mps.result(jid)
+    vol_h = vol.cpu()
+    rel = float(norm(torch.from_numpy(rec) - vol_h) / norm(vol_h))
+    if verbose:
+        print(f"[recon] pod fleet x{len(mps.pods)}: job ran on "
+              f"{mps.owner(jid).name}")
+        print(f"[recon] {algname} N={n} angles={n_angles} "
+              f"iters={record.iterations_done} mode={mode} device={dev} "
+              f"({'stream' if record.streamed else 'plain'}, scheduled): "
+              f"rel_err={rel:.4f} ({time.perf_counter() - t0:.1f}s)")
+    return rec, rel
+
+
+def _write_observability(args, server) -> None:
+    """The exit outputs of ``--trace``, ``--prometheus`` and
+    ``--calibration-report``; stops the live endpoint."""
+    if args.trace:
+        obs.write_chrome_trace(args.trace)
+        print(f"[recon] chrome trace -> {args.trace}")
+    if args.prometheus:
+        # the full exposition: tracer families plus the calibration /
+        # SLO / memory-margin families
+        with open(args.prometheus, "w") as f:
+            f.write(obs.metrics_text())
+        print(f"[recon] prometheus snapshot -> {args.prometheus}")
+    if args.calibration_report:
+        report = {
+            "calibration": obs.CalibrationLedger.from_events().report(),
+            "memory": [m.as_dict() for m in obs.memory_calibration()],
+            "slo": obs.slo_report(),
+        }
+        print(json.dumps(report, indent=2, sort_keys=True))
+    if server is not None:
+        server.stop()
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--alg", default="cgls",
@@ -225,31 +363,66 @@ def main(argv=None):
     ap.add_argument("--snapshot-dir", default="",
                     help="durable checkpoint directory: SIGTERM parks the "
                          "job there; re-running resumes bit-identically")
+    ap.add_argument("--pods", type=int, default=1,
+                    help="serve through a fleet of this many one-slot "
+                         "pods (routing + work stealing); with "
+                         "--snapshot-dir the fleet is durable")
+    ap.add_argument("--pin-devices", action="store_true",
+                    help="pin the pods to the GPUs present through a pod "
+                         "mesh (the GPU count must divide into --pods); "
+                         "a restore re-derives the pins from the same mesh")
     ap.add_argument("--trace", default="",
                     help="enable tracing and write a Chrome-trace JSON "
                          "here (open at https://ui.perfetto.dev)")
+    ap.add_argument("--prometheus", default="",
+                    help="write a Prometheus text snapshot (phase totals, "
+                         "counters, calibration / SLO / memory-margin "
+                         "families) here at exit")
+    ap.add_argument("--metrics-port", type=int, default=-1,
+                    help="serve the live Prometheus exposition over HTTP "
+                         "on this port for the run (0: a free port)")
+    ap.add_argument("--calibration-report", action="store_true",
+                    help="print the calibration ledger, memory margins "
+                         "and SLO report as JSON at exit")
     ap.add_argument("--device", default=None, choices=("cuda", "cpu"),
                     help="where to run (default: the card; cpu runs the "
                          "plain-PyTorch versions)")
     args = ap.parse_args(argv)
     backend = None if args.backend == "auto" else args.backend
-    if args.trace:
+    if args.mode == "dist" and args.pods > 1:
+        raise ValueError("--mode dist bypasses the scheduler and cannot be "
+                         "combined with --pods")
+    # every observability output needs the tracer on: the exporters read
+    # its ring buffer, the live endpoint re-reads it per scrape, and the
+    # calibration ledger folds its fleet event log
+    server = None
+    if (args.trace or args.prometheus or args.calibration_report
+            or args.metrics_port >= 0):
         obs.get_tracer().enable()
+        if args.metrics_port >= 0:
+            server = obs.MetricsServer(port=args.metrics_port)
+            server.start()
+            print(f"[recon] live metrics at {server.url}")
     try:
         if args.mode == "dist":
             res = reconstruct(args.alg, args.n, args.angles, args.iters,
                               "dist", args.device_bytes, device=args.device,
                               backend=backend)
             return res.rec, res.rel_err
+        if args.pods > 1:
+            return serve_fleet(args.alg, args.n, args.angles, args.iters,
+                               args.mode, args.device_bytes,
+                               device=args.device,
+                               snapshot_dir=args.snapshot_dir,
+                               backend=backend, pods=args.pods,
+                               pin_devices=args.pin_devices)
         return serve(args.alg, args.n, args.angles, args.iters, args.mode,
                      args.device_bytes, device=args.device,
                      snapshot_dir=args.snapshot_dir, backend=backend)
     finally:
         # written even on a preempted exit: the partial timeline is what
         # one looks at after a preemption
-        if args.trace:
-            obs.write_chrome_trace(args.trace)
-            print(f"[recon] chrome trace -> {args.trace}")
+        _write_observability(args, server)
 
 
 if __name__ == "__main__":

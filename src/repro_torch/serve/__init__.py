@@ -1,6 +1,6 @@
 """``repro_torch.serve`` — multi-tenant reconstruction job serving.
 
-Port of the single-pod half of ``repro.serve``.  A :class:`ReconJob`
+Port of ``repro.serve``.  A :class:`ReconJob`
 (geometry + data + algorithm + priority) is submitted to a
 :class:`Scheduler`, which
 
@@ -27,6 +27,21 @@ admission/snapshot thread) whose durable snapshots +
 :meth:`Scheduler.restore` survive process death.  The snapshot format is
 the reference's: the port restores the reference's snapshots.
 
+Past one pod, :mod:`repro_torch.serve.pool` runs one scheduler per *pod*
+(a list of ``torch.device``s, optionally derived from a
+``launch.mesh`` pod mesh): :class:`MultiPodScheduler` routes each
+submission to the pod whose topology models the cheapest completion, and
+:mod:`repro_torch.serve.steal` lets idle pods steal parked jobs from
+loaded ones (and migrate running ones) through the durable-snapshot
+format, so a moved job resumes bit-identically on the thief.
+:class:`MultiPodDriver` threads the whole fleet, and :class:`Autoscaler`
+(:mod:`repro_torch.serve.autoscale`) grows it from :class:`PodSpec`
+templates under load and shrinks it by draining the least-loaded pod.
+With a ``snapshot_root``, ``snapshot_fleet`` / ``drain_fleet`` persist
+membership + parked jobs and ``MultiPodScheduler.restore_fleet`` rebuilds
+the fleet (the reference's ``fleet.json``: each package restores the
+other's).
+
 Quick start::
 
     from repro_torch.serve import AsyncDriver, DevicePool, ReconJob, Scheduler
@@ -45,10 +60,20 @@ from .executor import JobExecutor, clear_operator_cache
 from .metrics import ServeMetrics, merge_metrics, percentile
 from .scheduler import (DevicePool, DeviceSlot, JobFootprint, Scheduler,
                         estimate_job_footprint, fair_share_weight)
-from .driver import AsyncDriver
+from .driver import AsyncDriver, MultiPodDriver
+from .pool import (MultiPodScheduler, Pod, PodSpec, RetiredPodSummary,
+                   modeled_job_seconds, pods_from_mesh)
+from .steal import (StealPolicy, drain_pod, migrate_once, steal_once,
+                    steal_pass)
+from .autoscale import Autoscaler, AutoscalePolicy, ScaleEvent
 
 __all__ = ["ReconJob", "JobRecord", "JobStatus", "PriorityJobQueue",
            "JobExecutor", "clear_operator_cache", "ServeMetrics",
            "merge_metrics", "percentile", "DevicePool", "DeviceSlot",
            "JobFootprint", "Scheduler", "estimate_job_footprint",
-           "fair_share_weight", "AsyncDriver"]
+           "fair_share_weight", "AsyncDriver", "MultiPodDriver",
+           "MultiPodScheduler", "Pod", "PodSpec", "RetiredPodSummary",
+           "modeled_job_seconds",
+           "pods_from_mesh", "StealPolicy", "drain_pod", "migrate_once",
+           "steal_once", "steal_pass", "Autoscaler", "AutoscalePolicy",
+           "ScaleEvent"]
