@@ -47,7 +47,22 @@ CT paths run at N=512 (512^3 volume, 512^2 detector, 512 angles):
   a fleet parked by the guard and restored onto the same pod mesh, and
   ``recon.main --pods 2`` with the Prometheus file, the calibration
   report and one scrape of the live endpoint; every result equals its
-  solo run bit for bit and recon's rel_err the single pod's.
+  solo run bit for bit and recon's rel_err the single pod's;
+* the tile autotuner (``repro_torch.kernels.autotune``): ``fp_ray``,
+  ``bp_matched`` and ``bp_voxel`` are each compiled in several tile
+  configurations.  ``phase_tile_checks`` holds every configuration against
+  configuration 0 bit for bit and against the plain version at the kernel
+  band (N=64, a prime N=61 with a 67 x 71 detector and 13 angles, and a
+  geometry past bp_voxel's window buffers); ``phase_autotune`` tunes the
+  three kinds at N=512 (the whole volume and the streamed slab height) and
+  N=256 and prints each candidate's ms, bit check and winner, times the
+  default and the winner at the main path's shapes, saves the table under
+  ``chiprun_out/`` and reloads it without a measurement, runs CGLS and
+  OS-SART at N=512 with tuning on (the tuned table, then every kernel at
+  its last configuration) bit-equal to the untuned runs, and runs
+  ``recon.main --autotune`` twice at N=256 with ``REPRO_AUTOTUNE_CACHE``
+  set, the second run measuring nothing.  The ``kernels`` line carries
+  each tuned kernel's configuration at N=512 and its ms.
 
 ``bp_matched`` reads each voxel's taps off per-plane tables in shared
 memory; ``bp_voxel`` reads its taps off a window of each angle's
@@ -73,7 +88,8 @@ just after, and must have launched the kernels it runs (and called none of
 their plain versions).
 
     python3 chip_smoke.py            # the whole run (one GPU)
-    python3 chip_smoke.py --quick    # build and kernel checks only
+    python3 chip_smoke.py --quick    # build and kernel checks only (with
+                                     # the tile checks)
 
 Every phase raises on failure, so the exit code is nonzero unless all of
 them pass.  Without a CUDA device, or without the repository around it,
@@ -2301,31 +2317,348 @@ def phase_flash_times(model, tokens, launches: int):
     return row
 
 
+# --------------------------------------------------------------------------
+# the tile autotuner (repro_torch.kernels.autotune)
+# --------------------------------------------------------------------------
+
+def tile_cases(n: int):
+    """(tag, geometry, angles) of the tile checks: nice(n), a prime shape
+    (N=61, a 67 x 71 detector, 13 angles) and OVERFLOW_GEO (bp_voxel's
+    global-read path beside its staged one)."""
+    from repro_torch.core.geometry import ConeGeometry, circular_angles
+    return ((f"N={n}", ConeGeometry.nice(n), circular_angles(48)),
+            ("N=61 prime", ConeGeometry.nice(61, n_detector=(67, 71)),
+             circular_angles(13)),
+            ("overflow", ConeGeometry(**OVERFLOW_GEO), circular_angles(40)))
+
+
+def phase_tile_checks(n: int):
+    """Every compiled tile configuration of fp_ray, bp_matched and bp_voxel
+    against configuration 0 bit for bit, and against the plain version at
+    the kernel band: x- and y-dominant angles (the backend's rotation),
+    the whole volume and a z0 > 0 slab, each bp_voxel weight."""
+    import torch
+    from repro_torch.core.geometry import dominant_axis_mask
+    from repro_torch.core.projector import _rotate_vol_90
+    from repro_torch.kernels import autotune, build
+    from repro_torch.kernels.bp_matched import (bp_matched_cuda,
+                                                bp_matched_plain)
+    from repro_torch.kernels.bp_voxel import bp_voxel_cuda, bp_voxel_plain
+    from repro_torch.kernels.fp_ray import fp_ray_cuda, fp_ray_plain
+    cfgs = {k: build.configs(k) for k in autotune.KERNELS.values()}
+    log("== tile configurations held against configuration 0 and the "
+        "plain version: " + "; ".join(
+            f"{k}: " + ", ".join(f"{i} {c}" for i, c in enumerate(v))
+            for k, v in cfgs.items()))
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    n_checked = 0
+    for tag, geo, ang in tile_cases(n):
+        nz = geo.n_voxel[0]
+        vol = torch.randn(geo.n_voxel, generator=gen, device="cuda")
+        mask = dominant_axis_mask(ang)
+        calls = []
+        for dom, sub in (("x", ang[mask]), ("y", ang[~mask])):
+            if not sub.size:
+                continue
+            a = torch.from_numpy(sub).cuda()
+            v = vol
+            if dom == "y":
+                if geo.n_voxel[1] != geo.n_voxel[2]:
+                    continue          # the rotation needs a square xy grid
+                v = _rotate_vol_90(vol).contiguous()
+                a = a - torch.pi / 2
+            y = torch.randn((a.numel(),) + geo.n_detector, generator=gen,
+                            device="cuda")
+            for part, z0, z1 in (("full", 0, nz),
+                                 ("slab", nz // 3, 2 * nz // 3 + 1)):
+                slab = v[z0:z1].contiguous()
+                t = f"{tag} {dom}-dominant {part}"
+                calls.append((
+                    "fp_ray", t,
+                    lambda c, s=slab, a=a, z0=z0: fp_ray_cuda(s, geo, a, z0,
+                                                              c),
+                    lambda s=slab, a=a, z0=z0: fp_ray_plain(s, geo, a, z0)))
+                calls.append((
+                    "bp_matched", t,
+                    lambda c, y=y, a=a, z0=z0, p=z1 - z0: bp_matched_cuda(
+                        y, geo, a, z0, p, config=c),
+                    lambda y=y, a=a, z0=z0, p=z1 - z0: bp_matched_plain(
+                        y, geo, a, z0, p)))
+        a = torch.from_numpy(ang).cuda()
+        y = torch.randn((a.numel(),) + geo.n_detector, generator=gen,
+                        device="cuda")
+        for weight in ("fdk", "pmatched", "none"):
+            for part, z0, p in (("full", 0, nz), ("slab", nz // 3,
+                                                  nz // 3 + 1)):
+                calls.append((
+                    "bp_voxel", f"{tag} {weight} {part}",
+                    lambda c, w=weight, z0=z0, p=p: bp_voxel_cuda(
+                        y, geo, a, w, z0, p, c),
+                    lambda w=weight, z0=z0, p=p: bp_voxel_plain(
+                        y, geo, a, w, z0, p)))
+        for name, t, kern, plain in calls:
+            want = plain()
+            ref = kern(0)
+            errs = []
+            for i in range(len(cfgs[name])):
+                got = kern(i)
+                if not torch.equal(got, ref):
+                    raise AssertionError(
+                        f"{name} {t}: configuration {i} {cfgs[name][i]} "
+                        f"differs from configuration 0 in "
+                        f"{int((got != ref).sum())} elements")
+                err = (got - want).abs()
+                bad = int((err > ATOL + RTOL * want.abs()).sum())
+                if bad:
+                    raise AssertionError(
+                        f"{name} {t}: configuration {i}: {bad} elements "
+                        f"outside rtol={RTOL} atol={ATOL} of the plain "
+                        "version")
+                errs.append(float(err.max()))
+                n_checked += 1
+            log(f"  {name} {t}: {len(errs)} configurations bit-equal to "
+                f"configuration 0, max |err| vs plain {max(errs):.3g}")
+        del vol
+    torch.cuda.synchronize()
+    log(f"  {n_checked} (configuration, case) pairs checked")
+
+
+def _count_measures(autotune):
+    """Wrap ``autotune._measure`` with a call counter (a list)."""
+    calls = []
+    inner = autotune._measure
+
+    def counted(*args, **kw):
+        calls.append(args[:2])
+        return inner(*args, **kw)
+    autotune._measure = counted
+    return calls, inner
+
+
+def phase_autotune(n: int, n_angles: int, ds, x2_plain, x_sart_plain,
+                   device_bytes, smi):
+    """The measured tile autotuner at the main path's sizes: tune fp,
+    bp_matched and bp for nice(n) (the whole volume and the streamed slab
+    height) and nice(n // 2), print each candidate's ms, bit check and the
+    winner; time the default and the winner at the main path's shapes;
+    save the table under chiprun_out/, reload it in a cleared tuner with
+    no measurement; run CGLS and OS-SART (2 iterations) with tuning on,
+    under the tuned table and under a table forcing each kernel's last
+    configuration, bit-equal to the untuned runs; ``recon.main
+    --autotune`` twice at n // 2 with REPRO_AUTOTUNE_CACHE set, the second
+    run measuring nothing.  Returns the winners at N=n by kernel."""
+    import torch
+    from repro_torch.core.geometry import (ConeGeometry, circular_angles,
+                                           dominant_axis_mask)
+    from repro_torch.core.plan import plan
+    from repro_torch.core.splitting import MemoryModel
+    from repro_torch.kernels import autotune, build
+    from repro_torch.kernels.bp_matched import bp_matched_cuda
+    from repro_torch.kernels.bp_voxel import bp_voxel_cuda
+    from repro_torch.kernels.fp_ray import fp_ray_cuda
+    from repro_torch.launch import recon
+    t_phase = time.perf_counter()
+    log(f"== tile autotuner (card: {smi})")
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    geo = ConeGeometry.nice(n)
+    half = ConeGeometry.nice(n // 2)
+    slab = plan(geo, n_angles, 1, MemoryModel(device_bytes=device_bytes)
+                ).backward.slab_ranges[0]
+    slab_planes = slab[1] - slab[0]
+    autotune.clear()
+    autotune.enable(True)
+    measures, inner = _count_measures(autotune)
+    winners = {}
+    tuned = {}
+    try:
+        for g, planes in ((geo, None), (geo, slab_planes), (half, None)):
+            for kind in ("fp", "bp_matched", "bp"):
+                pl = g.n_voxel[0] if kind == "bp" and planes is None \
+                    else planes
+                t0 = time.perf_counter()
+                rep = autotune.tune(kind, g, planes=pl, repeats=3)
+                log(f"  {rep.key}: " + "; ".join(
+                    f"{c['config']} "
+                    + ("refused (bit check)" if not c["bit_equal"] else
+                       f"{c['seconds'] * 1e3:.3f} ms")
+                    for c in rep.candidates)
+                    + f" -> configuration {rep.winner} "
+                    f"{rep.candidates[rep.winner]} "
+                    f"({time.perf_counter() - t0:.2f} s)")
+                if rep.refused:
+                    raise AssertionError(f"{rep.key}: configurations "
+                                         f"{rep.refused} failed the bit check")
+                tuned[(kind, g.n_voxel[0], pl)] = rep
+                if planes is None:
+                    winners[(autotune.KERNELS[kind], g.n_voxel[0])] = \
+                        rep.winner
+
+        # default and winner at the main path's shapes (seeded inputs)
+        log("  default vs tuned at the main path's shapes (median of 5):")
+        times = {}
+        for g in (geo, half):
+            nn = g.n_voxel[0]
+            gen = torch.Generator(device="cuda").manual_seed(7)
+            ang = circular_angles(nn)
+            a_x = torch.from_numpy(ang[dominant_axis_mask(ang)]).cuda()
+            a_all = torch.from_numpy(ang).cuda()
+            vol = torch.randn(g.n_voxel, generator=gen, device="cuda")
+            y = torch.randn((a_x.numel(),) + g.n_detector, generator=gen,
+                            device="cuda")
+            p_all = torch.randn((a_all.numel(),) + g.n_detector,
+                                generator=gen, device="cuda")
+            kern = {"fp_ray": lambda c: fp_ray_cuda(vol, g, a_x, 0, c),
+                    "bp_matched": lambda c: bp_matched_cuda(y, g, a_x,
+                                                            config=c),
+                    "bp_voxel": lambda c: bp_voxel_cuda(p_all, g, a_all,
+                                                        "pmatched", config=c)}
+            for name, k in kern.items():
+                w = winners[(name, nn)]
+                ms0 = cuda_ms(lambda: k(0), reps=5)
+                msw = ms0 if w == 0 else cuda_ms(lambda: k(w), reps=5)
+                times[(name, nn)] = (w, ms0, msw)
+                log(f"    {name} N={nn}: configuration 0 {ms0:.3f} ms, "
+                    f"tuned configuration {w} {msw:.3f} ms "
+                    f"({build.configs(name)[w]})")
+            del vol, y, p_all
+            torch.cuda.empty_cache()
+
+        # the table round trip: a cleared tuner reloads every winner
+        path = os.path.join(out_dir, "autotune_table.json")
+        autotune.save(path)
+        before = autotune.table()
+        autotune.clear()
+        n_before = len(measures)
+        if autotune.load(path) != len(before) or autotune.table() != before:
+            raise AssertionError("the table did not round-trip")
+        for (kind, nn, pl), rep in tuned.items():
+            g = geo if nn == n else half
+            got = autotune.get_blocks(kind, g, planes=pl)
+            if got != rep.blocks:
+                raise AssertionError(f"{rep.key}: reloaded {got}, tuned "
+                                     f"{rep.blocks}")
+        if len(measures) != n_before:
+            raise AssertionError("the reloaded table measured again")
+        log(f"  table saved ({len(before)} entries, {path}), reloaded in a "
+            "cleared tuner: the same winners, no measurement")
+
+        # tuned iterates are the untuned ones, bit for bit
+        def iterate(alg, want, what):
+            res = recon.reconstruct(alg, n=n, n_angles=n_angles, iters=2,
+                                    mode="plain", device="cuda", dataset=ds,
+                                    verbose=False, autotune=True)
+            got = res.rec.cpu()
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"{alg} {what}: {int((got != want).sum())} voxels "
+                    "differ from the untuned run")
+            log(f"  {alg} N={n}, 2 iterations, {what}: bit-equal to the "
+                f"untuned run ({[round(s, 3) for s in res.seconds]} s per "
+                "iteration)")
+        forced = {}
+        for cfg in ("tuned table", "last configurations"):
+            if cfg == "last configurations":
+                with autotune._LOCK:
+                    for key in list(autotune._TABLE):
+                        kind = key[0]
+                        last = len(autotune.configs(kind)) - 1
+                        autotune._TABLE[key] = dict(
+                            autotune.configs(kind)[last], config=last)
+                        forced[kind] = last
+                    autotune._FINGERPRINT += 1
+                if autotune.get_blocks("fp", geo)["config"] == 0:
+                    raise AssertionError("the forced table was not applied")
+            n_before = len(measures)
+            iterate("cgls", x2_plain, f"{cfg} {forced or ''}".strip())
+            iterate("ossart", x_sart_plain, cfg)
+            if len(measures) != n_before:
+                raise AssertionError("the tuned runs measured again")
+
+        # recon --autotune twice with the JSON cache: the second measures
+        # nothing
+        cache = os.path.join(out_dir, "recon_autotune.json")
+        if os.path.exists(cache):
+            os.remove(cache)
+        old_env = os.environ.get("REPRO_AUTOTUNE_CACHE")
+        os.environ["REPRO_AUTOTUNE_CACHE"] = cache
+        try:
+            rels, counts = [], []
+            for run_i in range(2):
+                autotune.clear()        # a new process: only the file is kept
+                autotune.enable(None)
+                n_before = len(measures)
+                t0 = time.perf_counter()
+                _, rel = recon.main(["--alg", "cgls", "--n", str(n // 2),
+                                     "--angles", str(n // 2), "--iters", "2",
+                                     "--autotune"])
+                counts.append(len(measures) - n_before)
+                rels.append(rel)
+                log(f"  recon.main --autotune N={n // 2} run {run_i + 1}: "
+                    f"rel_err {rel:.6f}, {counts[-1]} measurements, "
+                    f"{time.perf_counter() - t0:.1f} s")
+        finally:
+            if old_env is None:
+                os.environ.pop("REPRO_AUTOTUNE_CACHE", None)
+            else:
+                os.environ["REPRO_AUTOTUNE_CACHE"] = old_env
+        if counts[0] == 0 or counts[1] != 0:
+            raise AssertionError(f"recon --autotune measurements {counts}: "
+                                 "the first run must measure, the second "
+                                 "none")
+        if rels[0] != rels[1]:
+            raise AssertionError(f"recon --autotune rel_err {rels}")
+    finally:
+        autotune._measure = inner
+        autotune.enable(None)
+        autotune.clear()
+    log(f"  phase_autotune took {time.perf_counter() - t_phase:.1f} s")
+    return {name: times[(name, n)] for name in autotune.KERNELS.values()}, \
+        {name: times[(name, n // 2)] for name in autotune.KERNELS.values()}
+
+
 def _row(name, source, replaces, launches, err, ms, plain_ms, t_ops,
-         t_bytes):
+         t_bytes, tuned=(None, None)):
+    """One kernel's entry of the ``kernels`` line; ``tuned``: the tile
+    configuration the autotuner picked at the main path's size and its ms
+    (None, None for a kernel without tiles)."""
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": None}
+            "library_ms": None, "tuned_config": tuned[0],
+            "tuned_ms": tuned[1]}
 
 
-def _time_kernel(name, kern, plain, rtol=RTOL, atol=ATOL):
-    """(CUDA-event median of 5, plain ms once, max |err|) of one kernel."""
+def _time_kernel(name, kern, plain, rtol=RTOL, atol=ATOL, config=None):
+    """(CUDA-event median of 5, plain ms once, max |err|, tuned) of one
+    kernel; with a tuned ``config``, ``kern(config)`` is timed too and
+    must give configuration 0's bits: tuned = (config, its ms)."""
     import torch
-    ms = cuda_ms(kern, reps=5)
+    run = kern if config is None else (lambda: kern(0))
+    ms = cuda_ms(run, reps=5)
     plain_ms, want = once_ms(plain)
-    got = kern()
+    got = run()
     err = check_close(f"{name} at main shapes", got, want, rtol, atol)
+    tuned = (None, None)
+    if config is not None:
+        tuned = (config, ms if config == 0 else
+                 cuda_ms(lambda: kern(config), reps=5))
+        if not torch.equal(kern(config), got):
+            raise AssertionError(f"{name}: tuned configuration {config} "
+                                 "differs from configuration 0")
     del want, got
     torch.cuda.empty_cache()
-    return ms, plain_ms, err
+    return ms, plain_ms, err, tuned
 
 
-def phase_times(n: int, n_angles: int, ds, launches, per_iter, smi):
+def phase_times(n: int, n_angles: int, ds, launches, per_iter, smi,
+                tuned):
     """Each kernel at its main path's shapes: CUDA-event median, the plain
-    version once, the error between them, and the bound.  The Joseph pair
+    version once, the error between them, and the bound; for the three
+    tuned kernels also the autotuner's configuration at N=n (``tuned``:
+    {kernel: config}) and its median.  The Joseph pair
     takes the whole volume and one dominance group of angles (a CGLS
     launch), bp_voxel the whole volume and every angle with the pmatched
     weight (FDK's launch, with OS-SART's weight), tv_grad a whole volume
@@ -2358,35 +2691,38 @@ def phase_times(n: int, n_angles: int, ds, launches, per_iter, smi):
         raise AssertionError(f"adjoint defect {rel:.3g} > {ADJ_TOL}")
     rows = []
     for name, kern, plain, src, replaces in (
-            ("fp_ray", lambda: fp_ray_cuda(vol, geo, a),
+            ("fp_ray", lambda c: fp_ray_cuda(vol, geo, a, 0, c),
              lambda: fp_ray_plain(vol, geo, a),
              "src/repro_torch/kernels/csrc/fp_ray.cu",
              "src/repro/kernels/fp_ray.py:62"),
-            ("bp_matched", lambda: bp_matched_cuda(y, geo, a),
+            ("bp_matched", lambda c: bp_matched_cuda(y, geo, a, config=c),
              lambda: bp_matched_plain(y, geo, a),
              "src/repro_torch/kernels/csrc/bp_matched.cu",
              "src/repro/kernels/bp_matched.py:43")):
-        ms, plain_ms, err = _time_kernel(name, kern, plain)
+        ms, plain_ms, err, tun = _time_kernel(name, kern, plain,
+                                              config=tuned[name])
         rows.append(_row(name, src, replaces, launches[name], err, ms,
-                         plain_ms, t_ops, t_bytes))
+                         plain_ms, t_ops, t_bytes, tun))
     # bp_voxel at FDK's shape: every angle, the whole volume
     a_all = torch.from_numpy(angles).cuda()
     p_all = proj.contiguous()
     pairs = nz * ny * nx * a_all.numel()
     v_ops = OPS_PER_PAIR_VOXEL * pairs / PEAK_FP32
     v_bytes = (vol_bytes + a_all.numel() * (nv * nu * 4 + 32)) / PEAK_BYTES
-    ms, plain_ms, err = _time_kernel(
-        "bp_voxel", lambda: bp_voxel_cuda(p_all, geo, a_all, "pmatched"),
-        lambda: bp_voxel_plain(p_all, geo, a_all, "pmatched"))
+    ms, plain_ms, err, tun = _time_kernel(
+        "bp_voxel",
+        lambda c: bp_voxel_cuda(p_all, geo, a_all, "pmatched", config=c),
+        lambda: bp_voxel_plain(p_all, geo, a_all, "pmatched"),
+        config=tuned["bp_voxel"])
     rows.append(_row("bp_voxel", "src/repro_torch/kernels/csrc/bp_voxel.cu",
                      "src/repro/kernels/bp_voxel.py:32", launches["bp_voxel"],
-                     err, ms, plain_ms, v_ops, v_bytes))
+                     err, ms, plain_ms, v_ops, v_bytes, tun))
     del p_all
     torch.cuda.empty_cache()
     # tv_grad over the whole volume: each voxel read once, written once
     gen = torch.Generator(device="cuda").manual_seed(3)
     x = torch.randn(geo.n_voxel, generator=gen, device="cuda")
-    ms, plain_ms, err = _time_kernel(
+    ms, plain_ms, err, _ = _time_kernel(
         "tv_grad", lambda: tv_grad_cuda(x), lambda: tv_grad_plain(x),
         TV_RTOL, TV_ATOL)
     rows.append(_row("tv_grad", "src/repro_torch/kernels/csrc/tv_grad.cu",
@@ -2402,7 +2738,10 @@ def phase_times(n: int, n_angles: int, ds, launches, per_iter, smi):
         f"({pairs * 4 / 1e9:.0f} GB here); the TV gradient's closed form "
         "has no single call (autograd of tv_value is many ops)")
     for row in rows:
-        log(f"  {row['name']}: {row['ms']:.3f} ms (median of 5), plain "
+        tun = ("" if row["tuned_config"] is None else
+               f", tuned configuration {row['tuned_config']} "
+               f"{row['tuned_ms']:.3f} ms")
+        log(f"  {row['name']}: {row['ms']:.3f} ms (median of 5){tun}, plain "
             f"{row['plain_ms']:.1f} ms, bound {row['bound_ms']:.3f} ms "
             f"({row['bound_by']}), launches per iteration "
             + ", ".join(f"{path} {per[row['name']]}"
@@ -2430,6 +2769,7 @@ def main(argv=None) -> int:
         phase_kernel_checks(64, 48)
         phase_bp_voxel_checks(64, 48)
         phase_overflow_checks()
+        phase_tile_checks(64)
         phase_tv_grad_checks(64)
         phase_flash_checks()
         log(f"quick run passed in {time.perf_counter() - t_start:.0f}s")
@@ -2437,6 +2777,7 @@ def main(argv=None) -> int:
     phase_kernel_checks(128, 96)
     phase_bp_voxel_checks(128, 96)
     phase_overflow_checks()
+    phase_tile_checks(64)
     phase_tv_grad_checks(128)
     phase_flash_checks()
     n, n_angles = 512, 512
@@ -2450,7 +2791,8 @@ def main(argv=None) -> int:
     x_sart, c_sart, per_sart = phase_ossart_plain(n, n_angles, ds, iters=2)
     c_sart_stream = phase_ossart_stream(n, n_angles, ds, x_sart,
                                         device_bytes=256 << 20)
-    del x_sart
+    # kept for phase_autotune's tuned OS-SART, in host memory
+    x_sart = x_sart.cpu()
     torch.cuda.empty_cache()
     first, c_asd, per_asd = phase_asd_pocs_plain(n, n_angles, ds, iters=2)
     torch.cuda.empty_cache()
@@ -2467,7 +2809,6 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     c_stream_dev = phase_stream_devices(n, n_angles, ds, x2,
                                         device_bytes=256 << 20, smi=smi)
-    del x2
     torch.cuda.empty_cache()
     c_serve, solos = phase_serve(n, ds, x_stream, device_bytes=256 << 20,
                                  smi=smi)
@@ -2477,6 +2818,9 @@ def main(argv=None) -> int:
     solos.update(solo_durable)
     c_fleet = phase_fleet(n, ds, solos, rel_single, smi)
     del solos
+    tuned, _ = phase_autotune(n, n_angles, ds, x2, x_sart, 256 << 20, smi)
+    del x2, x_sart
+    torch.cuda.empty_cache()
     runs = (c_cgls, c_cgls_stream, c_fdk, c_sart, c_sart_stream, c_asd,
             c_asd_stream, c_fista, c_dist, c_dist_tv, c_stream_dev,
             c_serve, c_serve_durable, c_fleet)
@@ -2484,7 +2828,8 @@ def main(argv=None) -> int:
     launches = {k: sum(c[k]["launches"] for c in runs) for k in ct_kernels}
     rows = phase_times(n, n_angles, ds, launches,
                        {"CGLS": per_cgls, "OS-SART": per_sart,
-                        "ASD-POCS": per_asd, "FISTA": per_fista}, smi)
+                        "ASD-POCS": per_asd, "FISTA": per_fista}, smi,
+                       {name: t[0] for name, t in tuned.items()})
     del ds
     torch.cuda.empty_cache()
     log(f"  CT phases done at {time.perf_counter() - t_start:.0f}s; device "

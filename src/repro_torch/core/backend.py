@@ -18,7 +18,12 @@ slab-operator surface:
 Every executor (``CTOperator`` plain mode, the out-of-core streaming loops)
 obtains its kernels from here.  Callables come from a process-wide dispatch
 table keyed by (backend, kind, geometry, static args), with hit/miss
-counters (:func:`dispatch_cache_info`, :func:`dispatch_cache_keys`).
+counters (:func:`dispatch_cache_info`, :func:`dispatch_cache_keys`).  The
+cuda backend's static args include the tile configuration of each kernel
+(:mod:`repro_torch.kernels.autotune`: configuration 0 unless tuning is on
+and measured another on the ``device`` a backend method is given), so a
+retuned table materialises new entries; every configuration gives the
+same bits.
 
 Exact-adjoint ("matched") operators follow the selected backend: the cuda
 backend pairs the ray-driven FP with the matched kernel through a
@@ -140,20 +145,23 @@ class KernelBackend:
     name = "?"
 
     def kernel_config(self, geo: ConeGeometry, *,
-                      planes: Optional[int] = None) -> Dict[str, int]:
-        """Tunable block sizes this backend would run ``geo`` with (empty:
-        neither backend has tunable blocks yet; ROADMAP Queue A 11)."""
+                      planes: Optional[int] = None,
+                      device: DeviceLike = None) -> Dict[str, int]:
+        """Tunable tile configurations this backend would run ``geo`` with
+        on ``device`` (empty: the plain versions have no tiles)."""
         return {}
 
-    def fp(self, geo: ConeGeometry, *, xdom: bool) -> Callable:
+    def fp(self, geo: ConeGeometry, *, xdom: bool,
+           device: DeviceLike = None) -> Callable:
         raise NotImplementedError
 
     def bp(self, geo: ConeGeometry, *, planes: int,
-           weight: str) -> Callable:
+           weight: str, device: DeviceLike = None) -> Callable:
         raise NotImplementedError
 
     def bp_matched(self, geo: ConeGeometry, *, planes: int, xdom: bool,
-                   seg_chunk: Optional[int] = None) -> Callable:
+                   seg_chunk: Optional[int] = None,
+                   device: DeviceLike = None) -> Callable:
         """Exact slab adjoint: vjp of the ref slab FP (no scratch, so
         ``seg_chunk`` is not used)."""
         def build():
@@ -168,15 +176,17 @@ class KernelBackend:
             return f
         return _TABLE.get(("ref", "bp_matched", geo, planes, xdom), build)
 
-    def fp_mixed(self, geo: ConeGeometry, mask: np.ndarray) -> Callable:
+    def fp_mixed(self, geo: ConeGeometry, mask: np.ndarray,
+                 device: DeviceLike = None) -> Callable:
         """Full forward projection ``f(vol, angles) -> proj`` for a static
         dominance ``mask`` (x-dominant entries True): each dominance subset
         runs the specialised slab FP and the results scatter back."""
         mask = np.asarray(mask, bool)
-        key = (self.name, "fp_mixed", geo, mask.tobytes())
+        key = (self.name, "fp_mixed", geo, mask.tobytes(),
+               self._tiles(geo, device))
 
         def build():
-            groups = [(self.fp(geo, xdom=xd), idx, {})
+            groups = [(self.fp(geo, xdom=xd, device=device), idx, {})
                       for xd, idx in ((True, np.nonzero(mask)[0]),
                                       (False, np.nonzero(~mask)[0]))
                       if idx.size]
@@ -194,8 +204,14 @@ class KernelBackend:
             return f
         return _TABLE.get(key, build)
 
+    def _tiles(self, geo: ConeGeometry, device: DeviceLike) -> tuple:
+        """The tile configurations a dispatch key holds (none: the plain
+        versions have no tiles)."""
+        return ()
+
     def at_matched_mixed(self, geo: ConeGeometry, mask: np.ndarray,
-                         seg_chunk: Optional[int] = None) -> Callable:
+                         seg_chunk: Optional[int] = None,
+                         device: DeviceLike = None) -> Callable:
         """Exact adjoint ``f(proj, angles) -> vol`` of the mixed-dominance
         full FP (vjp of the ref FP here; the cuda backend sums its
         per-dominance matched kernels, with ``seg_chunk`` angles of
@@ -220,7 +236,8 @@ class RefBackend(KernelBackend):
 
     name = "ref"
 
-    def fp(self, geo: ConeGeometry, *, xdom: bool) -> Callable:
+    def fp(self, geo: ConeGeometry, *, xdom: bool,
+           device: DeviceLike = None) -> Callable:
         def build():
             if not xdom:
                 proj_mod.check_rotation_trick(geo)
@@ -232,7 +249,7 @@ class RefBackend(KernelBackend):
         return _TABLE.get(("ref", "fp", geo, xdom), build)
 
     def bp(self, geo: ConeGeometry, *, planes: int,
-           weight: str) -> Callable:
+           weight: str, device: DeviceLike = None) -> Callable:
         def build():
             def f(proj, angles, z0):
                 return proj_mod.backproject_voxel(
@@ -246,21 +263,22 @@ class _JosephFP(torch.autograd.Function):
     """The kernel pair as one differentiable op: forward launches
     ``fp_ray``, backward the matched ``bp_matched`` kernel — both replay
     identical fp32 tap weights, so anything that differentiates through
-    this FP gets the exact adjoint."""
+    this FP gets the exact adjoint.  ``tiles``: the two kernels' tile
+    configurations, (fp_ray's, bp_matched's)."""
 
     @staticmethod
-    def forward(ctx, slab, geo, angles, z0):
+    def forward(ctx, slab, geo, angles, z0, tiles):
         from ..kernels.fp_ray import fp_ray
-        ctx.geo, ctx.angles, ctx.z0 = geo, angles, z0
+        ctx.geo, ctx.angles, ctx.z0, ctx.tiles = geo, angles, z0, tiles
         ctx.planes = slab.shape[0]
-        return fp_ray(slab, geo, angles, z0)
+        return fp_ray(slab, geo, angles, z0, config=tiles[0])
 
     @staticmethod
     def backward(ctx, g):
         from ..kernels.bp_matched import bp_matched
         slab_bar = bp_matched(g.contiguous(), ctx.geo, ctx.angles, ctx.z0,
-                              ctx.planes)
-        return slab_bar, None, None, None
+                              ctx.planes, config=ctx.tiles[1])
+        return slab_bar, None, None, None, None
 
 
 class CudaBackend(KernelBackend):
@@ -278,7 +296,46 @@ class CudaBackend(KernelBackend):
 
     name = "cuda"
 
-    def fp(self, geo: ConeGeometry, *, xdom: bool) -> Callable:
+    def _blocks(self, kind: str, geo: ConeGeometry,
+                planes: Optional[int] = None,
+                device: DeviceLike = None) -> int:
+        """Kernel ``kind``'s tile configuration for ``geo`` on ``device``
+        (:func:`repro_torch.kernels.autotune.get_blocks`): 0 unless tuning
+        is on and the device a card."""
+        from ..kernels import autotune
+        return autotune.get_blocks(kind, geo, planes=planes,
+                                   device=device)["config"]
+
+    def _tiles(self, geo: ConeGeometry, device: DeviceLike) -> tuple:
+        """(fp_ray's, bp_matched's) configurations: the pair ``fp``'s
+        autograd op launches (as the reference keys both blocks of its
+        custom_vjp pair); ``bp_matched``'s is tuned at the whole volume."""
+        return (self._blocks("fp", geo, None, device),
+                self._blocks("bp_matched", geo, None, device))
+
+    def kernel_config(self, geo: ConeGeometry, *,
+                      planes: Optional[int] = None,
+                      device: DeviceLike = None) -> Dict[str, int]:
+        """The tile configuration of each kernel on ``geo`` (``bp`` at a
+        slab of ``planes``) on ``device``, with the configuration's knob
+        values on a card, and whether tuning is on."""
+        from ..kernels import autotune
+        chosen = {"fp": self._blocks("fp", geo, None, device),
+                  "bp_matched": self._blocks("bp_matched", geo, None,
+                                             device),
+                  "bp": self._blocks("bp", geo, planes, device)}
+        cfg = {f"{kind}.config": i for kind, i in chosen.items()}
+        if device is not None and resolve_device(device).type == "cuda":
+            for kind, i in chosen.items():
+                for knob, v in autotune.configs(kind)[i].items():
+                    cfg[f"{kind}.{knob}"] = v
+        cfg["autotuned"] = bool(autotune.enabled())
+        return cfg
+
+    def fp(self, geo: ConeGeometry, *, xdom: bool,
+           device: DeviceLike = None) -> Callable:
+        tiles = self._tiles(geo, device)
+
         def build():
             if not xdom:
                 proj_mod.check_rotation_trick(geo)
@@ -287,28 +344,34 @@ class CudaBackend(KernelBackend):
                 if not xdom:
                     slab = proj_mod._rotate_vol_90(slab)
                     angles = angles - math.pi / 2.0
-                return _JosephFP.apply(slab, geo, angles, z0)
+                return _JosephFP.apply(slab, geo, angles, z0, tiles)
             return f
-        return _TABLE.get(("cuda", "fp", geo, xdom), build)
+        return _TABLE.get(("cuda", "fp", geo, xdom, tiles), build)
 
     def bp(self, geo: ConeGeometry, *, planes: int,
-           weight: str) -> Callable:
+           weight: str, device: DeviceLike = None) -> Callable:
         """The voxel-driven kernel: one launch over all the angles passed,
         whatever their dominance."""
+        config = self._blocks("bp", geo, planes, device)
+
         def build():
             from ..kernels.bp_voxel import bp_voxel
 
             def f(proj, angles, z0):
-                return bp_voxel(proj, geo, angles, weight, z0, planes)
+                return bp_voxel(proj, geo, angles, weight, z0, planes,
+                                config)
             return f
-        return _TABLE.get(("cuda", "bp", geo, planes, weight), build)
+        return _TABLE.get(("cuda", "bp", geo, planes, weight, config), build)
 
     def bp_matched(self, geo: ConeGeometry, *, planes: int, xdom: bool,
-                   seg_chunk: Optional[int] = None) -> Callable:
+                   seg_chunk: Optional[int] = None,
+                   device: DeviceLike = None) -> Callable:
         """Native exact slab adjoint: the matched kernel replaying the ray
         kernel's fp32 weights (no ref vjp involved), with ``seg_chunk``
         angles of scratch (see :func:`~repro_torch.kernels.bp_matched.
         seg_chunk_for`)."""
+        config = self._blocks("bp_matched", geo, None, device)
+
         def build():
             from ..kernels.bp_matched import bp_matched
             if not xdom:
@@ -317,27 +380,31 @@ class CudaBackend(KernelBackend):
             def f(proj_chunk, angles, z0):
                 ang = angles if xdom else angles - math.pi / 2.0
                 slab = bp_matched(proj_chunk, geo, ang, z0, planes,
-                                  seg_chunk)
+                                  seg_chunk, config)
                 if not xdom:
                     # adjoint (= inverse) of the -90 deg scene rotation
                     slab = proj_mod._unrotate_vol_90(slab).contiguous()
                 return slab
             return f
         return _TABLE.get(("cuda", "bp_matched", geo, planes, xdom,
-                           seg_chunk), build)
+                           seg_chunk, config), build)
 
     def at_matched_mixed(self, geo: ConeGeometry, mask: np.ndarray,
-                         seg_chunk: Optional[int] = None) -> Callable:
+                         seg_chunk: Optional[int] = None,
+                         device: DeviceLike = None) -> Callable:
         """Exact adjoint of the mixed-dominance FP from the per-dominance
         matched kernels: the dominance groups partition the angle rows,
         so summing each group's slab adjoint is the full A^T."""
         mask = np.asarray(mask, bool)
-        key = ("cuda", "at_matched_mixed", geo, mask.tobytes(), seg_chunk)
+        config = self._blocks("bp_matched", geo, None, device)
+        key = ("cuda", "at_matched_mixed", geo, mask.tobytes(), seg_chunk,
+               config)
 
         def build():
             nz = geo.n_voxel[0]
             groups = [(self.bp_matched(geo, planes=nz, xdom=xd,
-                                       seg_chunk=seg_chunk), idx, {})
+                                       seg_chunk=seg_chunk, device=device),
+                       idx, {})
                       for xd, idx in ((True, np.nonzero(mask)[0]),
                                       (False, np.nonzero(~mask)[0]))
                       if idx.size]

@@ -235,14 +235,14 @@ def _dominance_groups(angles_np: np.ndarray):
 # forward projection
 # --------------------------------------------------------------------------
 
-def _fp_local_fn(geo: ConeGeometry, bk) -> Callable:
+def _fp_local_fn(geo: ConeGeometry, bk, device) -> Callable:
     """Partial FP of a z slab for an angle shard of any dominance mix:
     both single-dominance variants of the backend's slab FP, selected per
     angle (2x the local FP).  Only the fallback for
     ``dominance_split=False``; the default regroups the angles on the
     host (:func:`dist_forward_project`)."""
-    fpx = bk.fp(geo, xdom=True)
-    fpy = bk.fp(geo, xdom=False)
+    fpx = bk.fp(geo, xdom=True, device=device)
+    fpy = bk.fp(geo, xdom=False, device=device)
 
     def f(slab, angles, xmask, z0):
         return torch.where(xmask[:, None, None], fpx(slab, angles, z0),
@@ -321,7 +321,7 @@ def dist_forward_project(mesh, geo: ConeGeometry,
         return call
 
     if not dominance_split:
-        both = _traced_dist(sharded(_fp_local_fn(geo, bk)), "dist_fp",
+        both = _traced_dist(sharded(_fp_local_fn(geo, bk, dev0)), "dist_fp",
                             n_data, n_model, shards, reduce=reduce)
         return lambda vol, angles: both(vol, _angles_np(angles))
 
@@ -332,7 +332,7 @@ def dist_forward_project(mesh, geo: ConeGeometry,
 
     def fn_for(xdom: bool):
         if xdom not in fns:
-            fp1 = bk.fp(geo, xdom=xdom)
+            fp1 = bk.fp(geo, xdom=xdom, device=dev0)
             fns[xdom] = _traced_dist(
                 sharded(lambda s, a, _xmask, z0: fp1(s, a, z0)), "dist_fp",
                 n_data, n_model, shards, reduce=reduce, xdom=xdom)
@@ -413,6 +413,7 @@ def dist_backproject(mesh, geo: ConeGeometry, weight: str = "fdk",
     planes = _slab_planes(geo, n_model)
     shards = ShardStreams(grid.ravel())
     bp = get_backend(resolve(backend, grid[0, 0])).bp(geo, planes=planes,
+                                                      device=grid[0, 0],
                                                       weight=weight)
     fn = _sharded_bp(bp, grid, planes, reduce, shards)
     traced = _traced_dist(fn, "dist_bp", n_data, n_model, shards,
@@ -447,7 +448,7 @@ def dist_backproject_matched(mesh, geo: ConeGeometry,
 
     def fn_for(xdom: bool):
         if xdom not in fns:
-            bm = bk.bp_matched(geo, planes=planes, xdom=xdom,
+            bm = bk.bp_matched(geo, planes=planes, xdom=xdom, device=dev0,
                                seg_chunk=seg_chunk)
             fns[xdom] = _traced_dist(
                 _sharded_bp(bm, grid, planes, "psum", shards),

@@ -138,26 +138,28 @@ class CTOperator:
         present = [xd for xd, any_ in ((True, self._xdom.any()),
                                        (False, (~self._xdom).any())) if any_]
         if self.mode == "plain":
-            self._backend.fp_mixed(self.geo, self._xdom)
+            self._backend.fp_mixed(self.geo, self._xdom, self.device)
             if weight == "matched":
                 self._backend.at_matched_mixed(self.geo, self._xdom,
-                                               self._seg_chunk)
+                                               self._seg_chunk, self.device)
             else:
-                self._backend.bp(self.geo, planes=nz, weight=weight)
+                self._backend.bp(self.geo, planes=nz, weight=weight,
+                                 device=self.device)
         else:
             for xd in present:
-                self._backend.fp(self.geo, xdom=xd)
+                self._backend.fp(self.geo, xdom=xd, device=self.device)
             slabs = (self.plan.backward.slab_ranges if self.mode == "stream"
                      else [(0, nz // self.mesh.shape["model"])])
             for z0, z1 in slabs:
                 if weight != "matched":
                     self._backend.bp(self.geo, planes=z1 - z0,
-                                     weight=weight)
+                                     weight=weight, device=self.device)
                     continue
                 for xd in present:
                     self._backend.bp_matched(self.geo, planes=z1 - z0,
                                              xdom=xd,
-                                             seg_chunk=self._seg_chunk)
+                                             seg_chunk=self._seg_chunk,
+                                             device=self.device)
         if self.backend_name == "cuda" and self.device.type == "cuda":
             from ..kernels import build
             build.build()
@@ -165,12 +167,13 @@ class CTOperator:
                 build.entry(name)
 
     def kernel_config(self) -> dict:
-        """The backend's tunable block-size config for this geometry (at a
-        model shard's slab in dist mode)."""
+        """The backend's tile configurations for this geometry on this
+        operator's device (``bp`` at a model shard's slab in dist mode)."""
         planes = self.geo.n_voxel[0]
         if self.mode == "dist":
             planes //= self.mesh.shape["model"]
-        return self._backend.kernel_config(self.geo, planes=planes)
+        return self._backend.kernel_config(self.geo, planes=planes,
+                                           device=self.device)
 
     # ---- forward ----------------------------------------------------------
     def A(self, vol, angles=None) -> torch.Tensor:
@@ -187,7 +190,7 @@ class CTOperator:
             padded, valid = pad_angles(a_np, self._data_axis_size)
             out = self._a(vol, padded)
             return out if valid.all() else out[:len(a_np)]
-        fp = self._backend.fp_mixed(self.geo, mask)
+        fp = self._backend.fp_mixed(self.geo, mask, self.device)
         return fp(as_f32(vol, self.device), a_dev)
 
     # ---- backward ---------------------------------------------------------
@@ -213,9 +216,10 @@ class CTOperator:
             return self._at[weight](proj, padded)
         if weight != "matched":
             bp = self._backend.bp(self.geo, planes=self.geo.n_voxel[0],
-                                  weight=weight)
+                                  weight=weight, device=self.device)
             return bp(as_f32(proj, self.device), a_dev, 0)
-        at = self._backend.at_matched_mixed(self.geo, mask, self._seg_chunk)
+        at = self._backend.at_matched_mixed(self.geo, mask, self._seg_chunk,
+                                            self.device)
         return at(as_f32(proj, self.device), a_dev)
 
     # ---- spectral norm estimate (power iterations) -------------------------

@@ -231,7 +231,7 @@ def stream_forward(vol, geo: ConeGeometry, angles,
                               (False, np.nonzero(~xmask[a0:a1])[0] + a0)):
                 if idx.size:
                     groups[-1].append({
-                        "fp": bk.fp(geo, xdom=xdom),
+                        "fp": bk.fp(geo, xdom=xdom, device=lane.device),
                         "idx": torch.as_tensor(idx),
                         "angles": torch.from_numpy(angles[idx]).to(
                             lane.device),
@@ -387,11 +387,13 @@ def stream_backward(proj, geo: ConeGeometry, angles,
                         for xdom, sub in subsets[d][ci]:
                             fn = bk.bp_matched(geo, planes=z1 - z0,
                                                xdom=xdom,
-                                               seg_chunk=seg_chunk)
+                                               seg_chunk=seg_chunk,
+                                               device=lane.device)
                             acc[k].add_(fn(cur_p.index_select(0, sub),
                                            cur_a[sub], z0))
                     else:
-                        fn = bk.bp(geo, planes=z1 - z0, weight=weight)
+                        fn = bk.bp(geo, planes=z1 - z0, weight=weight,
+                                   device=lane.device)
                         acc[k].add_(fn(cur_p, cur_a, z0))
                 lane.sync()
             if last_use.get((d, ci)) == idx:

@@ -10,7 +10,12 @@
   sliding-window masks and the logit soft-cap, the LM prefill's attention
   (``csrc/flash_attention.cu``: a tensor-core kernel for bfloat16, a SIMT
   kernel for float32);
-* :mod:`.build` — ``nvcc`` at first use, ``ctypes`` loading.
+* :mod:`.build` — ``nvcc`` at first use, ``ctypes`` loading;
+* :mod:`.autotune` — the measured tile autotuner of ``fp_ray``,
+  ``bp_matched`` and ``bp_voxel`` (each compiled in a few tile
+  configurations that give the same bits);
+* :mod:`.ops` — cached public wrappers of the kernels;
+* :mod:`.ref` — plain-PyTorch oracles of the kernels.
 
 Importing this package builds and loads nothing.
 """
@@ -19,6 +24,7 @@ from __future__ import annotations
 
 from typing import Dict
 
+from . import autotune, ops, ref
 from .bp_matched import bp_matched_cuda, bp_matched_plain
 from .bp_voxel import bp_voxel_cuda, bp_voxel_plain
 from .flash_attention import flash_attention_cuda, flash_attention_plain

@@ -26,6 +26,11 @@ to fp32 summation tolerance.
   memory stays that of one plane);
 * :func:`bp_matched` picks between them by the tensor's device alone.
 
+The kernel is compiled in several tile configurations (slab planes of a
+block, angles staged at a time: ``build.configs("bp_matched")``);
+``config`` picks one by its index, 0 the default.  Every configuration
+gives the same bits; ``seg_chunk`` is the budget's, not a tile.
+
 ``bp_matched_cuda.launches`` / ``bp_matched_plain.calls`` count launches
 and plain calls.
 """
@@ -97,10 +102,11 @@ bp_matched_plain.calls = 0
 
 def bp_matched_cuda(proj: torch.Tensor, geo: ConeGeometry, angles,
                     z0: int = 0, z_planes: Optional[int] = None,
-                    seg_chunk: Optional[int] = None) -> torch.Tensor:
-    """Launch the CUDA exact adjoint on a CUDA ``proj``; see
-    :func:`bp_matched_plain` for the contract.  ``seg_chunk`` angles of
-    scratch at a time (None: :data:`SEG_CHUNK`)."""
+                    seg_chunk: Optional[int] = None,
+                    config: int = 0) -> torch.Tensor:
+    """Launch the CUDA exact adjoint, in tile configuration ``config``, on
+    a CUDA ``proj``; see :func:`bp_matched_plain` for the contract.
+    ``seg_chunk`` angles of scratch at a time (None: :data:`SEG_CHUNK`)."""
     _check_cuda(proj, "projections")
     chunk = SEG_CHUNK if seg_chunk is None else int(seg_chunk)
     if chunk < 1:
@@ -122,7 +128,8 @@ def bp_matched_cuda(proj: torch.Tensor, geo: ConeGeometry, angles,
     xc = plane_centers(geo, proj.device)
     gs = proj.new_empty((min(consts.shape[0], chunk),) + proj.shape[1:])
     launch("bp_matched", (proj.data_ptr(), consts.data_ptr(), xc.data_ptr(),
-                          out_t.data_ptr(), gs.data_ptr(), gs.shape[0]),
+                          out_t.data_ptr(), gs.data_ptr(), gs.shape[0],
+                          int(config)),
            consts, geo, planes, z0)
     bp_matched_cuda.launches += 1
     return out_t.permute(1, 2, 0).contiguous()
@@ -133,10 +140,13 @@ bp_matched_cuda.launches = 0
 
 def bp_matched(proj: torch.Tensor, geo: ConeGeometry, angles, z0: int = 0,
                z_planes: Optional[int] = None,
-               seg_chunk: Optional[int] = None) -> torch.Tensor:
+               seg_chunk: Optional[int] = None,
+               config: int = 0) -> torch.Tensor:
     """Exact adjoint on ``proj``'s device: the CUDA kernel for a CUDA
-    tensor (with ``seg_chunk`` angles of scratch), the plain version (no
-    scratch) for a CPU tensor, and an error otherwise."""
+    tensor (with ``seg_chunk`` angles of scratch, in tile configuration
+    ``config``), the plain version (no scratch, no tiles) for a CPU tensor,
+    and an error otherwise."""
     if proj.device.type == "cpu":
         return bp_matched_plain(proj, geo, angles, z0, z_planes)
-    return bp_matched_cuda(proj, geo, angles, z0, z_planes, seg_chunk)
+    return bp_matched_cuda(proj, geo, angles, z0, z_planes, seg_chunk,
+                           config)

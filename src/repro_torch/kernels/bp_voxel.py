@@ -24,6 +24,11 @@ slabs gives the whole.  Any dominance of angles is taken in one call.
   the oracle of the kernel, and what runs on the CPU;
 * :func:`bp_voxel` picks between them by the tensor's device alone.
 
+The kernel is compiled in several tile configurations (planes a thread
+sums, columns in y of a block: ``build.configs("bp_voxel")``); ``config``
+picks one by its index, 0 the default.  Every configuration gives the same
+bits, and the plain version has no tiles, so it takes no config.
+
 ``bp_voxel_cuda.launches`` counts kernel launches and
 ``bp_voxel_plain.calls`` calls of the plain version (see
 :func:`repro_torch.kernels.reset_counters`).
@@ -131,9 +136,11 @@ bp_voxel_plain.calls = 0
 
 def bp_voxel_cuda(proj: torch.Tensor, geo: ConeGeometry, angles,
                   weight: str = "fdk", z_start=0,
-                  z_planes: Optional[int] = None) -> torch.Tensor:
-    """Launch the CUDA voxel-driven backprojector on a CUDA ``proj``; see
-    :func:`bp_voxel_plain` for the contract."""
+                  z_planes: Optional[int] = None,
+                  config: int = 0) -> torch.Tensor:
+    """Launch the CUDA voxel-driven backprojector, in tile configuration
+    ``config``, on a CUDA ``proj``; see :func:`bp_voxel_plain` for the
+    contract."""
     _check_cuda(proj, "projections")
     code = _weight_code(weight)
     nz, ny, nx = geo.n_voxel
@@ -155,6 +162,7 @@ def bp_voxel_cuda(proj: torch.Tensor, geo: ConeGeometry, angles,
         consts.shape[0], nz, ny, nx, planes, nv, nu,
         dz, dy, dx, dv, du, offz, offy, offx, offv / dv, offu,
         geo.DSO, geo.DSD, geo.DSO / geo.DSD, float(z_start), code,
+        int(config),
         dev.index if dev.index is not None else torch.cuda.current_device(),
         torch.cuda.current_stream(dev).cuda_stream)
     bp_voxel_cuda.launches += 1
@@ -166,10 +174,12 @@ bp_voxel_cuda.launches = 0
 
 def bp_voxel(proj: torch.Tensor, geo: ConeGeometry, angles,
              weight: str = "fdk", z_start=0,
-             z_planes: Optional[int] = None) -> torch.Tensor:
+             z_planes: Optional[int] = None,
+             config: int = 0) -> torch.Tensor:
     """Voxel-driven backprojection on ``proj``'s device: the CUDA kernel
-    for a CUDA tensor, the plain version for a CPU tensor, and an error
-    otherwise."""
+    in tile configuration ``config`` for a CUDA tensor, the plain version
+    (no tiles) for a CPU tensor, and an error otherwise."""
     if proj.device.type == "cpu":
         return bp_voxel_plain(proj, geo, angles, weight, z_start, z_planes)
-    return bp_voxel_cuda(proj, geo, angles, weight, z_start, z_planes)
+    return bp_voxel_cuda(proj, geo, angles, weight, z_start, z_planes,
+                         config)

@@ -28,7 +28,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Callable, Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import torch
 
@@ -38,9 +38,10 @@ SOURCES = {"fp_ray": "fp_ray.cu", "bp_matched": "bp_matched.cu",
            "bp_voxel": "bp_voxel.cu", "tv_grad": "tv_grad.cu",
            "flash_attention": "flash_attention.cu"}
 #: kernel name -> the headers under csrc/ its source includes
-HEADERS = {"fp_ray": ("joseph_common.cuh",),
-           "bp_matched": ("joseph_common.cuh",),
-           "bp_voxel": (), "tv_grad": (), "flash_attention": ()}
+HEADERS = {"fp_ray": ("joseph_common.cuh", "tile_configs.cuh"),
+           "bp_matched": ("joseph_common.cuh", "tile_configs.cuh"),
+           "bp_voxel": ("tile_configs.cuh",), "tv_grad": (),
+           "flash_attention": ()}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -130,17 +131,20 @@ def load(name: str) -> ctypes.CDLL:
 #: offy offv offu z0), device, stream
 JOSEPH_TAIL = ([ctypes.c_int] * 7 + [ctypes.c_float] * 10
                + [ctypes.c_int, ctypes.c_void_p])
-#: csrc/fp_ray.cu's entry: vol, consts, xc, out, then the Joseph tail
-FP_RAY_ARGTYPES = [ctypes.c_void_p] * 4 + JOSEPH_TAIL
+#: csrc/fp_ray.cu's entry: vol, consts, xc, out, the tile config, then the
+#: Joseph tail
+FP_RAY_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] + JOSEPH_TAIL
 #: csrc/bp_matched.cu's entry: proj, consts, xc, out, the gs scratch and
-#: its angle count seg_chunk, then the Joseph tail
-BP_MATCHED_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] + JOSEPH_TAIL
+#: its angle count seg_chunk, the tile config, then the Joseph tail
+BP_MATCHED_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+                       + JOSEPH_TAIL)
 #: ctypes signature of csrc/bp_voxel.cu's entry: proj, consts, out;
 #: n_angles nz ny nx planes nv nu; fourteen floats (dz dy dx dv du offz
-#: offy offx offv/dv offu DSO DSD DSO/DSD z_start); weight, device, stream
+#: offy offx offv/dv offu DSO DSD DSO/DSD z_start); weight, the tile
+#: config, device, stream
 VOXEL_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
                   + [ctypes.c_float] * 14
-                  + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+                  + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 #: ctypes signature of csrc/tv_grad.cu's entry: vol, out; nz ny nx;
 #: eps^2; device, stream
 TV_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_float]
@@ -165,6 +169,35 @@ def entry(name: str):
         fn.restype = ctypes.c_int
         _ENTRIES[name] = fn
     return fn
+
+
+_CONFIGS: Dict[str, Tuple[Dict[str, int], ...]] = {}
+
+
+def configs(name: str) -> Tuple[Dict[str, int], ...]:
+    """The tile configurations compiled into kernel ``name``'s library, in
+    the order of their index (0: the default), each ``{knob: value}``, as
+    its C query ``<name>_configs`` / ``<name>_config_knobs`` reports them
+    (the library is built and loaded first); a kernel without the query
+    has one tile and raises."""
+    got = _CONFIGS.get(name)
+    if got is None:
+        lib = load(name)
+        knobs_fn = getattr(lib, f"{name}_config_knobs", None)
+        if knobs_fn is None:
+            raise ValueError(f"{name} has no tile configurations")
+        knobs_fn.restype = ctypes.c_char_p
+        knobs = knobs_fn().decode().split()
+        query = getattr(lib, f"{name}_configs")
+        query.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+        query.restype = ctypes.c_int
+        n = query(None, 0)
+        values = (ctypes.c_int * (n * len(knobs)))()
+        query(values, n)
+        got = _CONFIGS[name] = tuple(
+            dict(zip(knobs, values[i * len(knobs):(i + 1) * len(knobs)]))
+            for i in range(n))
+    return got
 
 
 def launch(name: str, device: torch.device, *args) -> None:

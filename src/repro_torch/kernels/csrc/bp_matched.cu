@@ -57,18 +57,30 @@
 // tables, per block and angle: about 45 u-parts (two IEEE divisions each)
 // and 45 x 23 z taps (one each, with a read of gs and two shared atomics)
 // for 512 voxels, and the reads of a voxel's hits.
+//
+// Tile configurations (tile_configs.cuh).  The slab planes of a block
+// (block_k) and the angles staged at a time (angles) are template
+// parameters; the library holds the instantiations of kConfigs below, row
+// 0 (16 planes, 4 angles: the tables described above, 103,072 bytes) the
+// default, and bp_matched_launch takes the row's index.  A table row's v
+// entries scale with the planes (kVCap = block_k + 12: 28 at 16), and
+// angles <= block_k (the stage's per-angle steps take a thread each).
+// Neither knob touches a voxel's sum: the angles are summed in order,
+// within an angle the u hits in order of u and each ray's v hits in order
+// of v, whether read off the tables or computed where they overflow, so
+// every configuration gives the same output bit for bit.  The launch
+// bounds keep 1024 threads an SM (64 registers).
 #include "joseph_common.cuh"
+#include "tile_configs.cuh"
 
 namespace {
 
 constexpr int kBlockJ = 32;
-constexpr int kBlockK = 16;
-constexpr int kThreads = kBlockJ * kBlockK;
-constexpr int kAngles = 4;        // angles staged at a time
+// {block_k, angles}: slab planes of a block, angles staged at a time
+constexpr int kConfigs[][2] = {{16, 4}, {16, 2}, {16, 8},
+                               {8, 4}, {8, 8}, {32, 4}};
+constexpr int kNumConfigs = sizeof(kConfigs) / sizeof(kConfigs[0]);
 constexpr int kUCap = 64;         // u entries of a table
-constexpr int kVCap = 28;         // v entries of a table row
-constexpr int kVPad = kVCap + 1;  // row stride: rows of neighbouring u
-                                  // fall in distinct banks
 constexpr int kRun = 3;           // u hits of a row j held in its list
 constexpr int kWidenU = 2;
 constexpr int kWidenV = 1;
@@ -131,11 +143,26 @@ __device__ __forceinline__ void v_range(const AngleConsts& c, float s_par,
                   (v_hi - g.offv) * inv_dv + g.cv, g.nv, kWidenV, v0, v1);
 }
 
+// One configuration's shape: the tile and its tables.
+template <int kBlockK_, int kAngles_>
+struct Tile {
+  static constexpr int kBlockK = kBlockK_;
+  static constexpr int kAngles = kAngles_;         // angles staged at a time
+  static constexpr int kThreads = kBlockJ * kBlockK;
+  static constexpr int kVCap = kBlockK + 12;       // v entries of a row
+  static constexpr int kVPad = kVCap + 1;  // row stride: rows of
+                                           // neighbouring u in distinct banks
+  static_assert(kAngles <= kBlockK, "a stage's angles take a warp each");
+};
+
 // One stage of kAngles angles: the constants and u window of each angle;
 // its u-parts; for each u its v window and, per entry, gs * wz for the two
 // planes the entry's z taps reach; per plane k of the tile and u, the run
 // of v hits; for each row j the list of its u hits with their y weights.
+template <class T>
 struct Tables {
+  static constexpr int kAngles = T::kAngles, kBlockK = T::kBlockK;
+  static constexpr int kVCap = T::kVCap, kVPad = T::kVPad;
   float consts[kAngles][8];
   int u0[kAngles];                 // first u of the window
   int cnt[kAngles];                // u in the window
@@ -193,16 +220,17 @@ __device__ __forceinline__ void add_ray_direct(const AngleConsts& c,
 
 // Add the v hits of table ray q of angle i on voxel (k, j), y weight wy, to
 // acc: read at plane k's run, or computed where the row overflowed.
-__device__ __forceinline__ void add_ray(const Tables& t, int i, int q,
+template <class T>
+__device__ __forceinline__ void add_ray(const Tables<T>& t, int i, int q,
                                         float wy, int k, float z_lo,
                                         float z_hi, const float* gs_a,
                                         const JosephGeom& g, float& acc) {
-  if (t.vcnt[i][q] > kVCap) {
+  if (t.vcnt[i][q] > T::kVCap) {
     add_ray_direct(load_angle(&t.consts[0][0], i), t.s_par[i][q],
                    t.u0[i] + q, wy, k, z_lo, z_hi, gs_a, g, acc);
     return;
   }
-  const int kl = k % kBlockK;
+  const int kl = k % T::kBlockK;
   const int lo = t.vlo[i][q][kl], run = t.vrun[i][q][kl];
   const int len = run & 0xff, below = run >> 8;
   const float* hi_w = t.g_hi[i][q] + lo;  // entries with k0i = k - 1
@@ -214,7 +242,9 @@ __device__ __forceinline__ void add_ray(const Tables& t, int i, int q,
   for (int e = 3; e < len; ++e) acc += (e < below ? hi_w[e] : lo_w[e]) * wy;
 }
 
-__device__ __forceinline__ JosephU table_u(const Tables& t, int i, int q) {
+template <class T>
+__device__ __forceinline__ JosephU table_u(const Tables<T>& t, int i,
+                                           int q) {
   JosephU su;
   su.s_par = t.s_par[i][q];
   su.wj = t.wj[i][q];
@@ -224,13 +254,16 @@ __device__ __forceinline__ JosephU table_u(const Tables& t, int i, int q) {
 }
 
 // carry: out_t already holds the sums over the earlier angles; continue them
-__global__ void __launch_bounds__(kThreads, 2)
+template <class T>
+__global__ void __launch_bounds__(T::kThreads, 1024 / T::kThreads)
     bp_matched_kernel(const float* __restrict__ gs,
                       const float* __restrict__ consts,
                       const float* __restrict__ xc, float* __restrict__ out_t,
                       int n_angles, bool carry, JosephGeom g) {
+  constexpr int kBlockK = T::kBlockK, kAngles = T::kAngles;
+  constexpr int kThreads = T::kThreads, kVCap = T::kVCap;
   extern __shared__ float4 smem4[];
-  Tables& t = *reinterpret_cast<Tables*>(smem4);
+  Tables<T>& t = *reinterpret_cast<Tables<T>*>(smem4);
   const int tid = threadIdx.y * kBlockJ + threadIdx.x;
   const int jb = blockIdx.x * kBlockJ;
   const int kb = blockIdx.y * kBlockK;
@@ -399,18 +432,54 @@ __global__ void __launch_bounds__(kThreads, 2)
   if (active) out_t[o] = acc;
 }
 
+// One configuration's launches: the pre-pass and the kernel of each chunk
+// of seg_chunk angles, in order, on `st`; returns the first launch error.
+template <class T>
+int launch_tiles(const float* proj, const float* consts, const float* xc,
+                 float* out_t, float* gs, int seg_chunk, int n_angles,
+                 const JosephGeom& g, cudaStream_t st) {
+  constexpr int kSmem = (int)sizeof(Tables<T>);
+  cudaError_t err = cudaFuncSetAttribute(
+      bp_matched_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmem);
+  if (err != cudaSuccess) return (int)err;
+  const int nv = g.nv, nu = g.nu;
+  const dim3 block(kBlockJ, T::kBlockK);
+  const dim3 grid((g.ny + kBlockJ - 1) / kBlockJ,
+                  (g.nz_slab + T::kBlockK - 1) / T::kBlockK, g.nx);
+  for (int c0 = 0; c0 < n_angles; c0 += seg_chunk) {
+    const int na = min(seg_chunk, n_angles - c0);
+    const float* consts_c = consts + (size_t)c0 * 8;
+    seg_scale_kernel<<<dim3((nu + 127) / 128, nv, na), 128, 0, st>>>(
+        proj + (size_t)c0 * nv * nu, consts_c, gs, g);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    bp_matched_kernel<T><<<grid, block, kSmem, st>>>(gs, consts_c, xc, out_t,
+                                                     na, c0 > 0, g);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
+}
+
 }  // namespace
 
+// The tile configurations: "block_k angles", one row of kConfigs each.
+extern "C" const char* bp_matched_config_knobs() { return "block_k angles"; }
+extern "C" int bp_matched_configs(int* values, int capacity) {
+  return copy_configs(kConfigs, values, capacity);
+}
+
 // proj (n_angles, nv, nu); gs scratch of (seg_chunk, nv, nu); out_t (nx,
-// nz_slab, ny).  Launches seg_scale_kernel and bp_matched_kernel for each
-// chunk of seg_chunk angles, in order, on `stream`; returns the first
-// launch error.
+// nz_slab, ny); config: a row of kConfigs.  Launches seg_scale_kernel and
+// bp_matched_kernel for each chunk of seg_chunk angles, in order, on
+// `stream`; returns the first launch error.
 extern "C" int bp_matched_launch(const void* proj, const void* consts,
                                  const void* xc, void* out_t, void* gs,
-                                 int seg_chunk, int n_angles, int nz, int ny,
-                                 int nx, int nz_slab, int nv, int nu,
-                                 float dz, float dy, float dx, float dv,
-                                 float du, float offz, float offy,
+                                 int seg_chunk, int config, int n_angles,
+                                 int nz, int ny, int nx, int nz_slab, int nv,
+                                 int nu, float dz, float dy, float dx,
+                                 float dv, float du, float offz, float offy,
                                  float offv, float offu, float z0,
                                  int device, void* stream) {
   cudaError_t err = use_device(device);
@@ -418,26 +487,11 @@ extern "C" int bp_matched_launch(const void* proj, const void* consts,
   if (seg_chunk < 1) return (int)cudaErrorInvalidValue;
   const JosephGeom g = make_geom(nz, ny, nx, nz_slab, nv, nu, dz, dy, dx,
                                  dv, du, offz, offy, offv, offu, z0);
-  const cudaStream_t st = (cudaStream_t)stream;
-  err = cudaFuncSetAttribute(bp_matched_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)sizeof(Tables));
-  if (err != cudaSuccess) return (int)err;
-  const dim3 block(kBlockJ, kBlockK);
-  const dim3 grid((ny + kBlockJ - 1) / kBlockJ,
-                  (nz_slab + kBlockK - 1) / kBlockK, nx);
-  for (int c0 = 0; c0 < n_angles; c0 += seg_chunk) {
-    const int na = min(seg_chunk, n_angles - c0);
-    const float* consts_c = (const float*)consts + (size_t)c0 * 8;
-    seg_scale_kernel<<<dim3((nu + 127) / 128, nv, na), 128, 0, st>>>(
-        (const float*)proj + (size_t)c0 * nv * nu, consts_c, (float*)gs, g);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    bp_matched_kernel<<<grid, block, sizeof(Tables), st>>>(
-        (const float*)gs, consts_c, (const float*)xc, (float*)out_t, na,
-        c0 > 0, g);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return (int)cudaSuccess;
+  return dispatch_config<kNumConfigs>(config, [&](auto c) {
+    constexpr int i = decltype(c)::value;
+    return launch_tiles<Tile<kConfigs[i][0], kConfigs[i][1]>>(
+        (const float*)proj, (const float*)consts, (const float*)xc,
+        (float*)out_t, (float*)gs, seg_chunk, n_angles, g,
+        (cudaStream_t)stream);
+  });
 }

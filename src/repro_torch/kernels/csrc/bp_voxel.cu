@@ -69,22 +69,37 @@
 // filtering (its 8-bit weights would miss the 2e-4 parity band).
 //
 // Resources (nvcc 12.9, ptxas -v; tools/probe_projectors.py): 45,824 bytes
-// of static shared memory a block (3 buffers of 56 x 68 floats and the
+// of shared memory a block (3 buffers of 56 x 68 floats and the
 // 4-entry angle ring), 64 registers (the launch bounds' cap for 4 blocks;
 // 80 uncapped, 3 blocks, 2.4 % slower), 4 blocks of 256 threads an SM:
 // 32 of 64 warps.
+//
+// Tile configurations (tile_configs.cuh).  The planes a thread sums
+// (tile_z) and the columns in y of a block (tile_y, its warps) are
+// template parameters; the library holds the instantiations of kConfigs
+// below, row 0 (32 planes, 8 rows: the tile described above) the
+// default, and bp_voxel_launch takes the row's index.  A buffer's rows
+// scale with the planes (kRows = 7/4 kTZ: 56 at 32) and its row stride
+// with the tile's width across the rays (68 floats up to 8 rows, 84 at
+// 16); the buffers are dynamic shared memory (91,520 bytes a block at 64
+// planes).  Neither knob touches a voxel's sum: a thread sums its own
+// voxels over the angles in order, a plane's fv depends on its index in
+// the volume alone, and a tap read from the window or from global memory
+// is the same value, so every configuration gives the same output bit for
+// bit.  The launch bounds keep 1024 threads an SM (64 registers) up to 32
+// planes a thread and 512 (128 registers) at 64.
 #include <cuda_runtime.h>
+
+#include "tile_configs.cuh"
 
 namespace {
 
 constexpr int kTX = 32;              // columns in x (a warp's lanes)
-constexpr int kTY = 8;               // columns in y (the block's warps)
-constexpr int kTZ = 32;              // planes a thread sums
-constexpr int kThreads = kTX * kTY;
-constexpr int kWarps = kThreads / 32;
+// {tile_z, tile_y}: planes a thread sums, columns in y (the block's warps)
+constexpr int kConfigs[][2] = {{32, 8}, {16, 8}, {64, 8},
+                               {32, 4}, {32, 16}, {16, 16}};
+constexpr int kNumConfigs = sizeof(kConfigs) / sizeof(kConfigs[0]);
 constexpr int kStages = 3;           // window buffers (angles in flight)
-constexpr int kStride = 68;          // floats per window row
-constexpr int kRows = 56;            // window rows per buffer
 constexpr int kWiden = 1;            // pixels added on each side
 constexpr float kMagic = 12582912.0f;      // 1.5 * 2^23
 constexpr float kCoordMax = 1048576.0f;    // 2^20: larger detector indices
@@ -159,6 +174,20 @@ __device__ __forceinline__ float lds(unsigned addr) {
   asm volatile("ld.shared.f32 %0, [%1+%2];\n" : "=f"(v) : "r"(addr), "n"(kOff));
   return v;
 }
+
+// The compile-time shape of one configuration: the tile and its window
+// buffers.
+template <int kTZ_, int kTY_>
+struct Tile {
+  static constexpr int kTZ = kTZ_;               // planes a thread sums
+  static constexpr int kTY = kTY_;               // columns in y
+  static constexpr int kThreads = kTX * kTY;
+  static constexpr int kWarps = kThreads / 32;
+  static constexpr int kRows = kTZ * 7 / 4;      // window rows per buffer
+  static constexpr int kStride = kTY > 8 ? 84 : 68;  // floats per row
+  static constexpr int kWinFloats = kRows * kStride;
+  static constexpr int kMinBlocks = (kTZ > 32 ? 512 : 1024) / kThreads;
+};
 
 struct VoxelGeom {
   int n_angles;
@@ -238,6 +267,7 @@ __device__ __forceinline__ float column_y(const VoxelGeom& g, int iy) {
 
 // The window of angle a for the tile at (ix0, iy0), planes from gz0: each
 // lane takes corner (lane & 7) of the box; the whole warp calls it.
+template <class T>
 __device__ void compute_window(const VoxelGeom& g,
                                const float* __restrict__ consts, int a,
                                int ix0, int iy0, float gz0, int lane,
@@ -246,10 +276,10 @@ __device__ void compute_window(const VoxelGeom& g,
   const float cth = __ldg(consts + 8 * a + 6);
   const int c = lane & 7;
   const float X = column_x(g, ix0 + ((c & 1) ? kTX - 1 : 0));
-  const float Y = column_y(g, iy0 + ((c & 2) ? kTY - 1 : 0));
+  const float Y = column_y(g, iy0 + ((c & 2) ? T::kTY - 1 : 0));
   const ColTerms t = column_terms<2>(g, X, Y, cth, sth);
   const float fv =
-      fmaf(gz0 + ((c & 4) ? (float)(kTZ - 1) : 0.0f), t.dfv, t.fv0);
+      fmaf(gz0 + ((c & 4) ? (float)(T::kTZ - 1) : 0.0f), t.dfv, t.fv0);
   bool good = t.front && fabsf(t.fu) < kCoordMax && fabsf(fv) < kCoordMax;
   float umin = t.fu, umax = t.fu, vmin = fv, vmax = fv;
 #pragma unroll
@@ -275,7 +305,7 @@ __device__ void compute_window(const VoxelGeom& g,
       w.nch = (u1 - u0) / 4 + 1;
       w.v0 = v0;
       w.rows = v1 - v0 + 1;
-      w.ok = 4 * w.nch <= kStride && w.rows <= kRows;
+      w.ok = 4 * w.nch <= T::kStride && w.rows <= T::kRows;
     }
     *out = w;
   }
@@ -289,7 +319,7 @@ __device__ void compute_window(const VoxelGeom& g,
 // and off the detector).
 constexpr unsigned kMagicBits = 0x4B400000u;   // the bits of kMagic
 
-template <bool kClamp, class Tap>
+template <bool kClamp, int kTZ, class Tap>
 __device__ __forceinline__ void add_planes(float (&acc)[kTZ], float wu,
                                            float gz0, float fv0, float dfv,
                                            float w2d, Tap tap) {
@@ -307,13 +337,18 @@ __device__ __forceinline__ void add_planes(float (&acc)[kTZ], float wu,
   }
 }
 
-template <int W>
-__global__ void __launch_bounds__(kThreads, 4)
+template <class T, int W>
+__global__ void __launch_bounds__(T::kThreads, T::kMinBlocks)
     bp_voxel_kernel(const float* __restrict__ proj,
                     const float* __restrict__ consts, float* __restrict__ out,
                     VoxelGeom g) {
-  __shared__ __align__(16) float win[kStages][kRows * kStride];
-  __shared__ AngleWin tab[kStages + 1];
+  constexpr int kTY = T::kTY, kTZ = T::kTZ, kWarps = T::kWarps;
+  constexpr int kStride = T::kStride;
+  // kStages window buffers of T::kWinFloats, then the angle ring
+  extern __shared__ __align__(16) float smem[];
+  float* const win = smem;
+  AngleWin* const tab =
+      reinterpret_cast<AngleWin*>(smem + kStages * T::kWinFloats);
   const int tid = threadIdx.y * kTX + threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int ix0 = blockIdx.x * kTX, iy0 = blockIdx.y * kTY;
@@ -332,13 +367,14 @@ __global__ void __launch_bounds__(kThreads, 4)
   auto issue = [&](int b) {
     const AngleWin& w = tab[b % (kStages + 1)];
     if (w.ok)
-      stage_window(win[b % kStages], kStride, w.rows, w.v0, w.u0, w.nch,
+      stage_window(win + (b % kStages) * T::kWinFloats, kStride, w.rows,
+                   w.v0, w.u0, w.nch,
                    proj + (size_t)b * det, g.nu, g.nv, g.nu, g.vec, warp, lane,
                    kWarps);
   };
 
   if (warp < kStages && warp < n_angles)
-    compute_window(g, consts, warp, ix0, iy0, gz0, lane, &tab[warp]);
+    compute_window<T>(g, consts, warp, ix0, iy0, gz0, lane, &tab[warp]);
   __syncthreads();
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
@@ -352,7 +388,7 @@ __global__ void __launch_bounds__(kThreads, 4)
     if (a + kStages - 1 < n_angles) issue(a + kStages - 1);
     cp_async_commit();
     if (warp == a % kWarps && a + kStages < n_angles)
-      compute_window(g, consts, a + kStages, ix0, iy0, gz0, lane,
+      compute_window<T>(g, consts, a + kStages, ix0, iy0, gz0, lane,
                      &tab[(a + kStages) % (kStages + 1)]);
 
     const AngleWin w = tab[a % (kStages + 1)];
@@ -369,7 +405,7 @@ __global__ void __launch_bounds__(kThreads, 4)
     if (fast) {
       // byte address of tap (j0, i0): base + 4 * kStride * (tb - kMagicBits)
       const unsigned base =
-          smem_addr(win[a % kStages]) +
+          smem_addr(win + (a % kStages) * T::kWinFloats) +
           4u * (unsigned)((i0 - w.u0) - w.v0 * kStride) -
           kMagicBits * (4u * kStride);
       add_planes<false>(acc, wu, gz0, t.fv0, t.dfv, t.w2d,
@@ -416,10 +452,44 @@ cudaError_t use_device(int device) {
   return cur == device ? cudaSuccess : cudaSetDevice(device);
 }
 
+// One configuration's launch: the kernel of `weight`, its dynamic shared
+// memory (the window buffers and the angle ring) opted in.
+template <class T, int W>
+int launch_weight(const float* p, const float* c, float* o,
+                  const VoxelGeom& g, cudaStream_t st) {
+  constexpr int kSmem =
+      kStages * T::kWinFloats * (int)sizeof(float) +
+      (kStages + 1) * (int)sizeof(AngleWin);
+  cudaError_t err = cudaFuncSetAttribute(
+      bp_voxel_kernel<T, W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 block(kTX, T::kTY);
+  const dim3 grid((g.nx + kTX - 1) / kTX, (g.ny + T::kTY - 1) / T::kTY,
+                  (g.planes + T::kTZ - 1) / T::kTZ);
+  bp_voxel_kernel<T, W><<<grid, block, kSmem, st>>>(p, c, o, g);
+  return (int)cudaGetLastError();
+}
+
+template <class T>
+int launch_tiles(const float* p, const float* c, float* o,
+                 const VoxelGeom& g, int weight, cudaStream_t st) {
+  if (weight == 0) return launch_weight<T, 0>(p, c, o, g, st);
+  if (weight == 1) return launch_weight<T, 1>(p, c, o, g, st);
+  return launch_weight<T, 2>(p, c, o, g, st);
+}
+
 }  // namespace
 
+// The tile configurations: "tile_z tile_y", one row of kConfigs each.
+extern "C" const char* bp_voxel_config_knobs() { return "tile_z tile_y"; }
+extern "C" int bp_voxel_configs(int* values, int capacity) {
+  return copy_configs(kConfigs, values, capacity);
+}
+
 // proj (n_angles, nv, nu), consts (n_angles, 8) and out (planes, ny, nx),
-// all float32, contiguous, on `device`.  Returns cudaGetLastError().
+// all float32, contiguous, on `device`; config: a row of kConfigs.
+// Returns cudaGetLastError().
 extern "C" int bp_voxel_launch(const void* proj, const void* consts,
                                void* out, int n_angles, int nz, int ny,
                                int nx, int planes, int nv, int nu, float dz,
@@ -427,7 +497,7 @@ extern "C" int bp_voxel_launch(const void* proj, const void* consts,
                                float offz, float offy, float offx, float ovd,
                                float offu, float dso, float dsd,
                                float dso_over_dsd, float z_start, int weight,
-                               int device, void* stream) {
+                               int config, int device, void* stream) {
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
   if (weight < 0 || weight > 2) return (int)cudaErrorInvalidValue;
@@ -447,18 +517,10 @@ extern "C" int bp_voxel_launch(const void* proj, const void* consts,
   g.fu_c = (float)((nu - 1) / 2.0 - (double)offu / (double)du);
   g.fv_c = (float)((nv - 1) / 2.0 - (double)ovd);
   g.vec = (nu & 3) == 0 && ((size_t)proj & 15) == 0;
-  const dim3 block(kTX, kTY);
-  const dim3 grid((nx + kTX - 1) / kTX, (ny + kTY - 1) / kTY,
-                  (planes + kTZ - 1) / kTZ);
-  const cudaStream_t st = (cudaStream_t)stream;
-  const float* p = (const float*)proj;
-  const float* c = (const float*)consts;
-  float* o = (float*)out;
-  if (weight == 0)
-    bp_voxel_kernel<0><<<grid, block, 0, st>>>(p, c, o, g);
-  else if (weight == 1)
-    bp_voxel_kernel<1><<<grid, block, 0, st>>>(p, c, o, g);
-  else
-    bp_voxel_kernel<2><<<grid, block, 0, st>>>(p, c, o, g);
-  return (int)cudaGetLastError();
+  return dispatch_config<kNumConfigs>(config, [&](auto cfg) {
+    constexpr int i = decltype(cfg)::value;
+    return launch_tiles<Tile<kConfigs[i][0], kConfigs[i][1]>>(
+        (const float*)proj, (const float*)consts, (float*)out, g, weight,
+        (cudaStream_t)stream);
+  });
 }

@@ -71,14 +71,27 @@
 // Resources (nvcc 12.9, ptxas -v; tools/probe_projectors.py): no shared
 // memory, at most 64 registers (the launch bounds' cap for 8 blocks), 8
 // blocks of 128 threads an SM: 32 of 64 warps.
+//
+// Tile configurations (tile_configs.cuh).  The rows v a thread owns
+// (rows_per) and the warps of a block (warps) are template parameters; the
+// library holds the instantiations of kConfigs below, row 0 (4 rows, 4
+// warps: the tile described above) the default, and fp_ray_launch takes
+// the row's index.  Neither knob touches a ray's sum: each thread sums its
+// own rays over the planes in order, the plane skip drops only planes
+// whose taps are all zero for every row it owns, and the short and exact
+// routes of the taps give the same bits, so every configuration gives
+// the same output bit for bit.  The launch bounds keep 1024 threads an SM
+// (64 registers) for 2 and 4 rows a thread and 512 (128 registers) for 8.
 #include "joseph_common.cuh"
+#include "tile_configs.cuh"
 
 namespace {
 
 constexpr int kTU = 32;              // u per tile (a warp's lanes)
-constexpr int kWarps = 4;
-constexpr int kRowsPer = 4;          // consecutive rows v a thread owns
-constexpr int kTV = kWarps * kRowsPer;
+// {rows_per, warps}
+constexpr int kConfigs[][2] = {{4, 4}, {2, 4}, {8, 4},
+                               {2, 8}, {4, 8}, {8, 8}};
+constexpr int kNumConfigs = sizeof(kConfigs) / sizeof(kConfigs[0]);
 
 // p, with its provenance hidden from the compiler (which otherwise folds
 // the plane's base into every gather's 64-bit address arithmetic).
@@ -87,11 +100,14 @@ __device__ __forceinline__ const float* opaque(const float* p) {
   return p;
 }
 
-__global__ void __launch_bounds__(kTU * kWarps, 8)
+template <int kRowsPer, int kWarps>
+__global__ void __launch_bounds__(kTU * kWarps,
+                                  (kRowsPer > 4 ? 512 : 1024) / (kTU * kWarps))
     fp_ray_kernel(const float* __restrict__ vol_t,
                   const float* __restrict__ consts,
                   const float* __restrict__ xc, float* __restrict__ out,
                   JosephGeom g) {
+  constexpr int kTV = kWarps * kRowsPer;
   const int iu = blockIdx.x * kTU + threadIdx.x;
   const int v0 = blockIdx.y * kTV + threadIdx.y * kRowsPer;
   const int a = blockIdx.z;
@@ -178,23 +194,41 @@ __global__ void __launch_bounds__(kTU * kWarps, 8)
   }
 }
 
+template <int kRowsPer, int kWarps>
+int launch_tiles(const float* vol_t, const float* consts, const float* xc,
+                 float* out, int n_angles, const JosephGeom& g,
+                 cudaStream_t stream) {
+  constexpr int kTV = kWarps * kRowsPer;
+  const dim3 block(kTU, kWarps);
+  const dim3 grid((g.nu + kTU - 1) / kTU, (g.nv + kTV - 1) / kTV, n_angles);
+  fp_ray_kernel<kRowsPer, kWarps><<<grid, block, 0, stream>>>(
+      vol_t, consts, xc, out, g);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
+// The tile configurations: "rows_per warps", one row of kConfigs each.
+extern "C" const char* fp_ray_config_knobs() { return "rows_per warps"; }
+extern "C" int fp_ray_configs(int* values, int capacity) {
+  return copy_configs(kConfigs, values, capacity);
+}
+
 extern "C" int fp_ray_launch(const void* vol_t, const void* consts,
-                             const void* xc, void* out, int n_angles,
-                             int nz, int ny, int nx, int nz_slab, int nv,
-                             int nu, float dz, float dy, float dx, float dv,
-                             float du, float offz, float offy, float offv,
-                             float offu, float z0, int device,
-                             void* stream) {
+                             const void* xc, void* out, int config,
+                             int n_angles, int nz, int ny, int nx,
+                             int nz_slab, int nv, int nu, float dz, float dy,
+                             float dx, float dv, float du, float offz,
+                             float offy, float offv, float offu, float z0,
+                             int device, void* stream) {
   cudaError_t err = use_device(device);
   if (err != cudaSuccess) return (int)err;
   const JosephGeom g = make_geom(nz, ny, nx, nz_slab, nv, nu, dz, dy, dx,
                                  dv, du, offz, offy, offv, offu, z0);
-  const dim3 block(kTU, kWarps);
-  const dim3 grid((nu + kTU - 1) / kTU, (nv + kTV - 1) / kTV, n_angles);
-  fp_ray_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      (const float*)vol_t, (const float*)consts, (const float*)xc,
-      (float*)out, g);
-  return (int)cudaGetLastError();
+  return dispatch_config<kNumConfigs>(config, [&](auto c) {
+    constexpr int i = decltype(c)::value;
+    return launch_tiles<kConfigs[i][0], kConfigs[i][1]>(
+        (const float*)vol_t, (const float*)consts, (const float*)xc,
+        (float*)out, n_angles, g, (cudaStream_t)stream);
+  });
 }

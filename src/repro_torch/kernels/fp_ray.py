@@ -11,6 +11,11 @@ Port of ``repro/kernels/fp_ray.py``.  Three callables share one contract,
   kernel, and what runs on the CPU;
 * :func:`fp_ray` picks between them by the tensor's device alone.
 
+The kernel is compiled in several tile configurations (rows a thread owns,
+warps a block: ``build.configs("fp_ray")``); ``config`` picks one by its
+index, 0 the default.  Every configuration gives the same bits, and the
+plain version has no tiles, so it takes no config.
+
 ``vol`` holds the z planes ``[z0, z0 + vol.shape[0])`` of ``geo``'s volume;
 the result is that slab's partial projection, and partial projections of
 disjoint slabs sum to the whole.  The kernel handles x-dominant angles
@@ -199,9 +204,10 @@ def _check_cuda(t: torch.Tensor, what: str) -> None:
 
 
 def fp_ray_cuda(vol: torch.Tensor, geo: ConeGeometry, angles,
-                z0: int = 0) -> torch.Tensor:
-    """Launch the CUDA forward projector on a CUDA ``vol``; see
-    :func:`fp_ray_plain` for the contract."""
+                z0: int = 0, config: int = 0) -> torch.Tensor:
+    """Launch the CUDA forward projector, in tile configuration
+    ``config``, on a CUDA ``vol``; see :func:`fp_ray_plain` for the
+    contract."""
     _check_cuda(vol, "volume")
     _check_vol(vol, geo)
     nv, nu = geo.n_detector
@@ -214,7 +220,8 @@ def fp_ray_cuda(vol: torch.Tensor, geo: ConeGeometry, angles,
     vol_t = vol.permute(2, 0, 1).contiguous()
     xc = plane_centers(geo, vol.device)
     launch("fp_ray", (vol_t.data_ptr(), consts.data_ptr(), xc.data_ptr(),
-                      out.data_ptr()), consts, geo, vol.shape[0], z0)
+                      out.data_ptr(), int(config)),
+           consts, geo, vol.shape[0], z0)
     fp_ray_cuda.launches += 1
     return out
 
@@ -222,10 +229,11 @@ def fp_ray_cuda(vol: torch.Tensor, geo: ConeGeometry, angles,
 fp_ray_cuda.launches = 0
 
 
-def fp_ray(vol: torch.Tensor, geo: ConeGeometry, angles,
-           z0: int = 0) -> torch.Tensor:
-    """Forward projection on ``vol``'s device: the CUDA kernel for a CUDA
-    tensor, the plain version for a CPU tensor, and an error otherwise."""
+def fp_ray(vol: torch.Tensor, geo: ConeGeometry, angles, z0: int = 0,
+           config: int = 0) -> torch.Tensor:
+    """Forward projection on ``vol``'s device: the CUDA kernel in tile
+    configuration ``config`` for a CUDA tensor, the plain version (no
+    tiles) for a CPU tensor, and an error otherwise."""
     if vol.device.type == "cpu":
         return fp_ray_plain(vol, geo, angles, z0)
-    return fp_ray_cuda(vol, geo, angles, z0)
+    return fp_ray_cuda(vol, geo, angles, z0, config)

@@ -34,6 +34,15 @@ port), and ``--calibration-report`` prints the modeled-vs-measured
 calibration ledger, the memory margins and the SLO report as JSON at exit.
 Every one of them turns the tracer on.
 
+``--autotune`` (``reconstruct(..., autotune=True)``) turns on the measured
+tile autotuner of the projector kernels (:mod:`repro_torch.kernels.
+autotune`, as ``REPRO_AUTOTUNE=1``): the first use of each (kernel,
+geometry shape) on the card checks every compiled tile configuration
+against the default bit for bit, times the ones that agree and memoises
+the winner; with ``REPRO_AUTOTUNE_CACHE=path`` the table persists across
+runs (pre-bake it with ``tools/torch_autotune.py``).  Every configuration
+gives the same bits, so the flag changes times, never results.
+
 :func:`reconstruct` is the direct path: it steps the algorithm on a
 :class:`CTOperator` in the requested mode without the scheduler (every
 mode, dist included), and returns the per-step seconds and residuals the
@@ -62,6 +71,9 @@ Usage::
     PYTHONPATH=src python -m repro_torch.launch.recon --alg cgls --n 64 \
         --angles 96 --iters 10 --pods 2 --snapshot-dir /tmp/fleet-snap \
         --prometheus /tmp/recon.prom --calibration-report --metrics-port 0
+    # tuned tiles, the table kept across runs:
+    REPRO_AUTOTUNE_CACHE=/tmp/tiles.json PYTHONPATH=src python -m \
+        repro_torch.launch.recon --alg cgls --n 64 --angles 96 --autotune
     # sharded over a mesh of every GPU present (angles over "data"):
     PYTHONPATH=src python -m repro_torch.launch.recon --alg ossart --n 64 \
         --angles 96 --iters 2 --mode dist
@@ -91,6 +103,7 @@ from ..core.geometry import ConeGeometry
 from ..core.operator import CTOperator
 from ..core.splitting import MemoryModel
 from ..data import make_ct_dataset
+from ..kernels import autotune as _autotune
 from ..serve import (AsyncDriver, DevicePool, JobStatus, MultiPodDriver,
                      MultiPodScheduler, Pod, PodSpec, ReconJob, Scheduler)
 from ..serve.pool import FLEET_MANIFEST
@@ -122,7 +135,8 @@ def reconstruct(algname: str = "cgls", n: int = 64, n_angles: int = 96,
                 iters: int = 10, mode: str = "plain", device_bytes: int = 0,
                 device: DeviceLike = None, verbose: bool = True,
                 dataset=None, callback: Optional[Callable] = None,
-                mesh=None, backend: Optional[str] = None) -> ReconResult:
+                mesh=None, backend: Optional[str] = None,
+                autotune: bool = False) -> ReconResult:
     """Reconstruct the N^3 Shepp-Logan phantom from ``n_angles``
     projections with ``iters`` iterations of ``algname`` (one step for a
     direct algorithm such as FDK).  ``dataset`` reuses a
@@ -133,7 +147,10 @@ def reconstruct(algname: str = "cgls", n: int = 64, n_angles: int = 96,
     backprojects with the algorithm's weight (the matched adjoint for CGLS
     and FISTA, pmatched otherwise), as the reference's dist mode does.
     ``backend`` names the kernel backend ("ref" | "cuda"; None: by
-    device).  No scheduler is involved: see :func:`serve`."""
+    device).  ``autotune`` turns the tile autotuner on for the process
+    (``--autotune``).  No scheduler is involved: see :func:`serve`."""
+    if autotune:
+        _autotune.enable(True)
     alg = get_algorithm(algname)
     dev = resolve_device(device)
     geo = ConeGeometry.nice(n)
@@ -384,11 +401,19 @@ def main(argv=None):
     ap.add_argument("--calibration-report", action="store_true",
                     help="print the calibration ledger, memory margins "
                          "and SLO report as JSON at exit")
+    ap.add_argument("--autotune", action="store_true",
+                    help="measure the projector kernels' tile "
+                         "configurations on first use instead of taking "
+                         "the default (as REPRO_AUTOTUNE=1; keep the "
+                         "winners across runs with REPRO_AUTOTUNE_CACHE="
+                         "path or pre-bake them with tools/torch_autotune.py)")
     ap.add_argument("--device", default=None, choices=("cuda", "cpu"),
                     help="where to run (default: the card; cpu runs the "
                          "plain-PyTorch versions)")
     args = ap.parse_args(argv)
     backend = None if args.backend == "auto" else args.backend
+    if args.autotune:
+        _autotune.enable(True)
     if args.mode == "dist" and args.pods > 1:
         raise ValueError("--mode dist bypasses the scheduler and cannot be "
                          "combined with --pods")

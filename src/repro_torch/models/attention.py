@@ -2,14 +2,15 @@
 full-sequence pass of prefill and the one-token decode on a ring cache.
 
 Port of the GQA half of ``repro/models/attention.py`` for one device.  MLA
-and cross-attention are not ported yet (ROADMAP A14).
+and cross-attention are not ported yet (ROADMAP A3).
 
 The reference picks its full-sequence attention with
 ``AttnConfig.use_flash``: the Pallas kernel when set, else ``_sdpa``, a
 chunked jnp attention kept so that GSPMD owns the sharding on the TPU.  The
 port keeps the field for config parity but dispatches by device, as its
 other kernels do: :func:`gqa_fwd` calls
-:func:`repro_torch.kernels.flash_attention.flash_attention`, which launches
+:func:`repro_torch.kernels.ops.flash_attention` (the cached wrapper of
+:func:`repro_torch.kernels.flash_attention.flash_attention`), which launches
 the CUDA kernel on a CUDA tensor and runs the kernel's plain version (a
 chunked dense softmax, the port's ``_sdpa``) on a CPU tensor.  Both
 reference paths compute that function within the reference's tolerances
@@ -25,7 +26,8 @@ from typing import Dict, Optional
 
 import torch
 
-from ..kernels.flash_attention import NEG_INF, flash_attention
+from ..kernels.flash_attention import NEG_INF
+from ..kernels.ops import flash_attention
 from .common import apply_rope, dense_init, rms_norm
 
 Params = Dict[str, torch.Tensor]

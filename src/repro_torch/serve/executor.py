@@ -37,6 +37,7 @@ from ..core.device import resolve_device
 from ..core.operator import CTOperator
 from ..core.plan import plan as plan_execution
 from ..core.splitting import MemoryModel
+from ..kernels import autotune
 from .job import ReconJob
 
 # Operator cache shared across jobs: tenants with the same acquisition
@@ -63,10 +64,11 @@ def _get_operator(geo, angles: np.ndarray, mode: str, bp_weight: str,
                   backend: Optional[str] = None) -> CTOperator:
     device = resolve_device(devices[0] if devices else None)
     backend = resolve_backend(backend, device)   # None and its target share
-    # the reference's key also holds autotune.fingerprint(); the port has
-    # no tuned block tables until kernels/autotune.py is ported
+    # autotune.fingerprint(): a retuned or reloaded tile table must not
+    # reuse operators built under the previous tile configurations
     key = (geo, angles.tobytes(), mode, bp_weight, backend,
-           memory.device_bytes, memory.usable_fraction, str(device))
+           memory.device_bytes, memory.usable_fraction,
+           autotune.fingerprint(), str(device))
     with _op_cache_lock:
         op = _op_cache.get(key)
         if op is not None:

@@ -39,8 +39,16 @@ def _const(name: str) -> int:
     return int(re.search(rf"constexpr int {name} = (\d+);", SRC).group(1))
 
 
-BLOCK_J, BLOCK_K = _const("kBlockJ"), _const("kBlockK")
-U_CAP, V_CAP, RUN = _const("kUCap"), _const("kVCap"), _const("kRun")
+def _config0() -> list:
+    """The knobs of configuration 0, the first row of the kernel's tile
+    table ``kConfigs`` ({block_k, angles})."""
+    row = re.search(r"kConfigs\[\]\[\d+\] = \{\{([\d, ]+)\}", SRC).group(1)
+    return [int(x) for x in row.split(",")]
+
+
+BLOCK_J, BLOCK_K = _const("kBlockJ"), _config0()[0]
+U_CAP, RUN = _const("kUCap"), _const("kRun")
+V_CAP = BLOCK_K + int(re.search(r"kVCap = kBlockK \+ (\d+);", SRC).group(1))
 WIDEN_U, WIDEN_V = _const("kWidenU"), _const("kWidenV")
 
 

@@ -364,12 +364,14 @@ def test_dist_operator_warmup_and_kernel_config():
     op = CTOperator(GEO, ANGLES, mode="dist", mesh=_mesh(2), backend="cuda")
     op.warmup()
     keys = bk.dispatch_cache_keys()
-    # the last entry: bp_matched's scratch angles under the default budget
-    assert ("cuda", "bp_matched", GEO, 16, True, 8) in keys
-    assert ("cuda", "bp_matched", GEO, 16, False, 8) in keys
+    # bp_matched's scratch angles under the default budget, then the tile
+    # configuration (0: tuning is off)
+    assert ("cuda", "bp_matched", GEO, 16, True, 8, 0) in keys
+    assert ("cuda", "bp_matched", GEO, 16, False, 8, 0) in keys
     op.warmup("fdk")
-    assert ("cuda", "bp", GEO, 16, "fdk") in bk.dispatch_cache_keys()
-    assert op.kernel_config() == {}
+    assert ("cuda", "bp", GEO, 16, "fdk", 0) in bk.dispatch_cache_keys()
+    assert op.kernel_config() == {"fp.config": 0, "bp_matched.config": 0,
+                                  "bp.config": 0, "autotuned": False}
 
 
 def test_dist_cgls_matches_plain_cgls():

@@ -186,7 +186,9 @@ def test_build_locations_and_missing_nvcc(monkeypatch):
         assert path.name.startswith(f"lib{name}-")
         for header in build.HEADERS[name]:
             assert (build.CSRC / header).exists()
-    assert build.HEADERS["bp_voxel"] == ()
+    # bp_voxel shares no tap arithmetic with the Joseph pair, only the
+    # tile-configuration dispatch
+    assert build.HEADERS["bp_voxel"] == ("tile_configs.cuh",)
     monkeypatch.setattr(build.shutil, "which", lambda _: None)
     monkeypatch.setattr(build.os.path, "exists", lambda _: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):

@@ -44,10 +44,23 @@ def _const(src: str, name: str) -> int:
     return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
 
 
-ROWS_PER = _const(FP_SRC, "kRowsPer")
-TX, TY, TZ = (_const(BP_SRC, n) for n in ("kTX", "kTY", "kTZ"))
-STRIDE, ROWS, WIDEN = (_const(BP_SRC, n) for n in ("kStride", "kRows",
-                                                   "kWiden"))
+def _config0(src: str) -> list:
+    """The knobs of a kernel's configuration 0, the first row of its tile
+    table ``kConfigs``."""
+    row = re.search(r"kConfigs\[\]\[\d+\] = \{\{([\d, ]+)\}", src).group(1)
+    return [int(x) for x in row.split(",")]
+
+
+ROWS_PER = _config0(FP_SRC)[0]                 # {rows_per, warps}
+TZ, TY = _config0(BP_SRC)                      # {tile_z, tile_y}
+TX, WIDEN = (_const(BP_SRC, n) for n in ("kTX", "kWiden"))
+# the window buffer of configuration 0: kRows = kTZ * a / b rows of
+# kStride floats (the wide stride above a tile_y bound)
+_a, _b = re.search(r"kRows = kTZ \* (\d+) / (\d+);", BP_SRC).groups()
+ROWS = TZ * int(_a) // int(_b)
+_bound, _wide, _narrow = (int(x) for x in re.search(
+    r"kStride = kTY > (\d+) \? (\d+) : (\d+);", BP_SRC).groups())
+STRIDE = _wide if TY > _bound else _narrow
 MAGIC = F(12582912.0)                # 1.5 * 2^23
 COORD_MAX = F(1048576.0)             # 2^20
 

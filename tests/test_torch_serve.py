@@ -457,7 +457,8 @@ def test_bp_matched_scratch_is_sized_by_the_budget():
                         backend="cuda", device=CPU)
         op.warmup()
         keys = [k for k in bk.dispatch_cache_keys() if k[1] == "bp_matched"]
-        assert keys and all(k[-1] == chunk for k in keys), keys
+        # (cuda, bp_matched, geo, planes, xdom, seg_chunk, tile config)
+        assert keys and all(k[5] == chunk for k in keys), keys
         bk.clear_dispatch_cache()
 
 
