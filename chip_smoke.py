@@ -83,6 +83,25 @@ bf16, seeded random weights made on the card):
   time by kernel, device idle share);
 * decode-equals-prefill in float32 at full width and 4 layers.
 
+Then the dense and MoE configs (``phase_lm_zoo``), each at full width and
+depth, bf16, seeded weights on the card, one model resident at a time:
+stablelm-1.6b (head dim 64), codeqwen1.5-7b (128), hubert-xlarge (an
+encoder on seeded frame embeddings, head dim 80), deepseek-moe-16b and
+moonshot-v1-16b-a3b (a dense first layer, then MoE layers of 64 experts,
+top 6; head dim 128):
+
+* prefill of 2 x 8192 tokens (prefill_32k cut to S 8192, batch 2), a
+  warm-up and 3 timed, every one the same bits, each attention layer's
+  launch on the tensor-core kernel; the MoE configs' share of assignments
+  dropped at capacity;
+* 16 decode steps of the four decoders at batch 2 on 8192 cache slots
+  (decode_32k cut from 32768 slots and batch 128); hubert's serve step is
+  refused (no decode step);
+* ``flash_attention`` timed at hubert's D 80 shape;
+* a torch.profiler window over one prefill and 3 decode steps of each MoE
+  config (device time by kernel, idle share);
+* decode-equals-prefill in float32 at 4 layers of each decoder's widths.
+
 Each path is run with the kernel counters set to 0 just before it and read
 just after, and must have launched the kernels it runs (and called none of
 their plain versions).
@@ -148,6 +167,9 @@ FLASH_TOL = {"float32": (2e-4, 2e-4), "bfloat16": (1e-2, 1e-4)}
 #: scale of the checks' random q: scores of std 4, so the soft-cap of 50
 #: changes the softmax (at std 1 it moves no output out of the band)
 FLASH_Q_SCALE = 4.0
+#: head dims of the flash checks: gemma2's 256, the zoo's 64 (stablelm),
+#: 80 (hubert) and 128 (codeqwen, deepseek, moonshot)
+FLASH_DIMS = (64, 80, 128, 256)
 LM_RTOL, LM_ATOL = 1e-3, 1e-4  # decode vs forward (tests/test_models.py:86)
 SART_TOL = 2e-3            # streamed vs plain (tests/test_algorithms.py:77)
 #: the kernels each path runs (its counter check)
@@ -1886,7 +1908,7 @@ def phase_fleet(n: int, ds, solos, rel_single, smi):
 
 def phase_flash_checks():
     """flash_attention against its plain version on the card: S 1000 (no
-    tile divides it), head dims 64, 128 and 256, Hq/Hkv 1, 2 and 8, causal
+    tile divides it), head dims 64, 80, 128 and 256, Hq/Hkv 1, 2 and 8, causal
     and not, windows 64 and 4096, soft-cap none and 50, float32 and
     bfloat16; repeat launches bit-identical.  At D 256, Hq/Hkv 8 in
     bfloat16, the plain version with the window, the causal mask or the
@@ -1898,7 +1920,7 @@ def phase_flash_checks():
     heads = ((4, 4), (8, 4), (16, 2))
     masks = ((True, None, None), (False, None, None), (True, 64, 50.0),
              (False, 64, None), (True, 4096, 50.0), (False, 4096, 50.0))
-    log(f"== flash_attention checks at S={s}, D 64/128/256, Hq/Hkv 1/2/8, "
+    log(f"== flash_attention checks at S={s}, D 64/80/128/256, Hq/Hkv 1/2/8, "
         f"{len(masks)} mask and cap settings, float32 and bfloat16")
     from repro_torch import kernels
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -1906,7 +1928,7 @@ def phase_flash_checks():
     kernels.reset_counters()
     for dtype in (torch.float32, torch.bfloat16):
         rtol, atol = FLASH_TOL[str(dtype).split(".")[1]]
-        for d in (64, 128, 256):
+        for d in FLASH_DIMS:
             for hq, hkv in heads:
                 q, k, v = ((torch.randn((2, h, s, d), generator=gen,
                                         device="cuda") * c).to(dtype)
@@ -1937,7 +1959,7 @@ def phase_flash_checks():
                     worst[dtype] = max(worst.get(dtype, 0.0),
                                        float(err.max()))
     torch.cuda.synchronize()
-    n_cases = 3 * len(heads) * len(masks)
+    n_cases = len(FLASH_DIMS) * len(heads) * len(masks)
     paths = flash_paths()
     if paths != {"wgmma": 2 * n_cases, "simt": 2 * n_cases}:
         raise AssertionError(f"flash_attention paths {paths}: bfloat16 must "
@@ -1969,17 +1991,32 @@ def _lm_tokens(seed: int, batch: int, seq: int, vocab: int):
         np.int32)).cuda()
 
 
-def phase_lm_build(seed: int):
-    """gemma2-9b at full width and depth, bf16, weights drawn on the card
-    from ``seed``."""
+def _lm_inputs(cfg, seed: int, batch: int, seq: int):
+    """Seeded token ids, or seeded frame embeddings (an audio model's
+    stub frontend, N(0, 1) in the model's type), on the card."""
+    import torch
+    if cfg.family == "audio":
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        return torch.randn((batch, seq, cfg.d_model), generator=gen,
+                           device="cuda").to(cfg.dtype)
+    return _lm_tokens(seed, batch, seq, cfg.vocab)
+
+
+def phase_lm_build(name: str, seed: int, smi):
+    """Config ``name`` at full width and depth, bf16, weights drawn on the
+    card from ``seed``."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.lm import LM
-    cfg = get_config("gemma2-9b")
-    log(f"== gemma2-9b: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.n_heads}/{cfg.n_kv} heads of {cfg.hd}, d_ff {cfg.d_ff}, vocab "
-        f"{cfg.vocab}, {cfg.dtype}")
+    cfg = get_config(name)
+    log(f"== {name} ({cfg.family}; card: {smi}): {cfg.n_layers} layers "
+        f"{sorted(set(cfg.layer_kinds))}, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv} heads of {cfg.hd}, d_ff {cfg.d_ff}"
+        + (f", {cfg.n_experts} experts top-{cfg.top_k} of {cfg.d_expert} "
+           f"(+{cfg.n_shared} shared)" if cfg.n_experts else "")
+        + f", vocab {cfg.vocab}, {cfg.dtype}")
     gen = torch.Generator(device="cuda").manual_seed(seed)
+    torch.cuda.reset_peak_memory_stats()
     ms, model = once_ms(lambda: LM(cfg, device="cuda", generator=gen))
     n = sum(p.numel() for p in model.parameters())
     log(f"  {n / 1e9:.3f} B parameters, "
@@ -1988,60 +2025,78 @@ def phase_lm_build(seed: int):
     return model
 
 
-def phase_prefill(model, tokens, reps: int = 3):
-    """The main path: build_prefill_step on B x S prompts; one warm-up and
-    ``reps`` timed prefills, each ending in a sync; 42 kernel launches per
-    prefill and no plain call."""
+def phase_prefill(model, inputs, reps: int = 3):
+    """The main path: build_prefill_step on B x S prompts (token ids, or
+    an audio model's frame embeddings).  A warm-up forward (which also
+    counts the MoE drops) and ``reps`` timed prefills, each ending in a
+    sync, every one's logits the same bits; every attention layer's
+    launch on the tensor-core kernel, no plain call."""
     import torch
     from repro_torch import kernels
     from repro_torch.launch.steps import build_prefill_step
-    b, s = tokens.shape
     cfg = model.cfg
-    log(f"== gemma2-9b prefill: {b} prompts of {s} tokens (prefill_32k cut "
-        f"to S {s}, batch {b}), 1 warm-up + {reps} timed")
-    step = build_prefill_step(cfg, "prefill_32k", batch=b, seq=s, model=model)
-    if step.in_specs["tokens"][0] != tuple(tokens.shape):
-        raise AssertionError(f"input spec {step.in_specs}")
+    b, s = inputs.shape[:2]
+    step = build_prefill_step(cfg, "prefill_32k", batch=b, seq=s,
+                              model=model)
+    want_spec = (tuple(inputs.shape), inputs.dtype if cfg.family == "audio"
+                 else torch.int32)
+    if step.in_specs["tokens"] != want_spec:
+        raise AssertionError(f"input spec {step.in_specs} for {want_spec}")
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_counters()
-    warm_ms, logits = once_ms(lambda: step.fn(tokens))
-    times = [once_ms(lambda: step.fn(tokens))[0] for _ in range(reps)]
+    stats = {}
+    with torch.inference_mode():
+        warm_ms, hidden = once_ms(lambda: model(inputs, moe_stats=stats))
+        first = model.logits(hidden[:, -1:])
+        del hidden
+    times = []
+    for _ in range(reps):
+        ms, logits = once_ms(lambda: step.fn(inputs))
+        times.append(ms)
+        if not torch.equal(logits, first):
+            raise AssertionError(f"{cfg.name}: a repeat prefill differs")
     counts = kernels.counters()
-    med = statistics.median(times)
-    log(f"  wall ms {[round(t, 1) for t in times]} (median {med:.1f}; "
-        f"warm-up {warm_ms:.1f}), {b * s / med * 1e3:.0f} tokens/s, peak "
-        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     paths = flash_paths()
-    log(f"  counters {counts['flash_attention']}, by path {paths}, over "
-        f"{reps + 1} prefills")
-    check_counts(counts, "prefill", "prefill")
+    med = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check_counts(counts, "prefill", f"{cfg.name} prefill")
     want = cfg.n_layers * (reps + 1)
     if counts["flash_attention"]["launches"] != want or \
             paths != {"wgmma": want, "simt": 0}:
-        raise AssertionError(f"{counts['flash_attention']} launches, by path "
-                             f"{paths}; expected {want}, all on the "
+        raise AssertionError(f"{cfg.name}: {counts['flash_attention']}, by "
+                             f"path {paths}; expected {want}, all on the "
                              "tensor-core path")
-    if tuple(logits.shape) != (b, 1, cfg.vocab) or not bool(
-            torch.isfinite(logits).all()):
-        raise AssertionError(f"prefill logits {tuple(logits.shape)}, finite "
-                             f"{bool(torch.isfinite(logits).all())}")
-    return counts, med
+    if tuple(first.shape) != (b, 1, cfg.vocab) or not bool(
+            torch.isfinite(first).all()):
+        raise AssertionError(f"{cfg.name}: prefill logits "
+                             f"{tuple(first.shape)}, finite "
+                             f"{bool(torch.isfinite(first).all())}")
+    drop = int(stats["dropped"]) / stats["assignments"] if stats else None
+    log(f"  prefill {b} x {s} (prefill_32k cut to S {s}, batch {b}): wall ms "
+        f"{[round(t, 1) for t in times]} (median {med:.1f}; warm-up forward "
+        f"{warm_ms:.1f}), {b * s / med * 1e3:.0f} tokens/s, peak device "
+        f"memory {peak:.2f} GiB; {reps + 1} prefills bit-identical, logits "
+        f"finite; flash launches {want} by path {paths}"
+        + ("" if drop is None else
+           f"; MoE assignments dropped at capacity {int(stats['dropped'])} "
+           f"of {stats['assignments']} ({100 * drop:.3f} %)"))
+    return dict(prefill_ms=med, tokens_per_s=b * s / med * 1e3,
+                peak_gib=peak, launches=want, drop_share=drop)
 
 
-def phase_decode(model, tokens, steps: int = 32, s_max: int = 32768):
-    """build_serve_step from init_cache(B, s_max): ``steps`` decode steps
-    fed the prompts' first tokens at positions 0..steps-1."""
+def phase_decode(model, tokens, steps: int, slots: int):
+    """build_serve_step on init_cache(B, slots): ``steps`` decode steps fed
+    the prompts' first tokens at positions 0..steps-1; no kernel and no
+    plain version runs (decode attends in plain ops on the ring cache)."""
     import torch
     from repro_torch import kernels
     from repro_torch.launch.steps import build_serve_step
-    b = tokens.shape[0]
     cfg = model.cfg
-    log(f"== gemma2-9b decode: {steps} steps at batch {b} from an empty "
-        f"{s_max}-slot cache (decode_32k with batch cut 128 -> {b})")
-    step = build_serve_step(cfg, "decode_32k", batch=b, seq=s_max,
+    b = tokens.shape[0]
+    step = build_serve_step(cfg, "decode_32k", batch=b, seq=slots,
                             model=model)
     torch.cuda.reset_peak_memory_stats()
-    caches = model.init_cache(b, s_max)
+    caches = model.init_cache(b, slots)
     shapes = [{n: tuple(t.shape) for n, t in c.items()} for c in caches]
     if shapes != [{n: shp for n, (shp, _) in c.items()}
                   for c in step.in_specs["caches"]]:
@@ -2054,29 +2109,34 @@ def phase_decode(model, tokens, steps: int = 32, s_max: int = 32768):
         times.append(ms)
         if tuple(logits.shape) != (b, 1, cfg.vocab) or not bool(
                 torch.isfinite(logits).all()):
-            raise AssertionError(f"step {t}: logits {tuple(logits.shape)}")
+            raise AssertionError(f"{cfg.name} step {t}: logits "
+                                 f"{tuple(logits.shape)}")
     counts = kernels.counters()
-    cache_gib = sum(t.numel() * t.element_size() for c in caches
-                    for t in c.values()) / 2**30
-    log(f"  ms per step: median {statistics.median(times):.2f} (first "
-        f"{times[0]:.2f}, last {times[-1]:.2f}), caches {cache_gib:.2f} GiB, "
-        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
-        f"GiB; logits finite, shape {tuple(logits.shape)}")
     if any(c["launches"] or c["plain_calls"] for c in counts.values()):
         raise AssertionError(f"decode ran a kernel or plain version: {counts}")
-    log("  counters all 0 (decode attends in plain ops on the ring cache)")
+    med = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    cache_gib = sum(t.numel() * t.element_size() for c in caches
+                    for t in c.values()) / 2**30
+    log(f"  decode: {steps} steps at batch {b} on {slots} slots (decode_32k "
+        f"cut to batch {b}): median {med:.2f} ms a step (first "
+        f"{times[0]:.2f}, last {times[-1]:.2f}), caches {cache_gib:.2f} GiB, "
+        f"peak device memory {peak:.2f} GiB; logits finite; counters all 0")
     del caches
     torch.cuda.empty_cache()
-    return statistics.median(times)
+    return dict(decode_ms=med, decode_peak_gib=peak)
 
 
-def phase_lm_consistency(seed: int, layers: int = 4, window: int = 32,
-                         n: int = 96, at=(31, 32, 63, 95)):
+def phase_lm_consistency(name: str, seed: int, layers: int = 4, n: int = 32,
+                         at=(7, 15, 31), **overrides):
     """The reference's decode-equals-forward check (tests/test_models.py:74)
-    at full width: gemma2-9b with ``layers`` layers, float32, window
-    ``window``.  Decoding n tokens one by one gives, at the positions
-    ``at``, the logits that prefill of that prefix gives (through the
-    kernel), within rtol 1e-3 / atol 1e-4."""
+    at the config's full widths: ``layers`` layers (the MoE configs: the
+    dense prelude and layers - 1 MoE layers), float32, the ``overrides``.
+    Decoding n tokens one by one at batch 2 gives, at the positions ``at``,
+    the logits that prefill of that prefix gives (through the kernel),
+    within rtol 1e-3 / atol 1e-4.  At n <= 32 a pass holds at most 64
+    tokens, within the MoE capacity floor min(T, 64), so neither pass
+    drops an assignment."""
     import dataclasses
     import torch
     from repro_torch import kernels
@@ -2085,10 +2145,8 @@ def phase_lm_consistency(seed: int, layers: int = 4, window: int = 32,
     if torch.backends.cuda.matmul.allow_tf32 or \
             torch.get_float32_matmul_precision() != "highest":
         raise AssertionError("TF32 matmuls are on")
-    cfg = dataclasses.replace(get_config("gemma2-9b"), n_layers=layers,
-                              window=window, dtype=torch.float32)
-    log(f"== decode vs prefill: gemma2-9b widths, {layers} layers, float32, "
-        f"window {window}, {n} tokens, positions {list(at)}")
+    cfg = dataclasses.replace(get_config(name), n_layers=layers,
+                              dtype=torch.float32, **overrides)
     model = LM(cfg, device="cuda",
                generator=torch.Generator(device="cuda").manual_seed(seed))
     tokens = _lm_tokens(seed + 1, 2, n, cfg.vocab)
@@ -2106,17 +2164,19 @@ def phase_lm_consistency(seed: int, layers: int = 4, window: int = 32,
                 bad = err > LM_ATOL + LM_RTOL * want[t].abs()
                 if bool(bad.any()):
                     raise AssertionError(
-                        f"position {t}: {int(bad.sum())} logits outside "
-                        f"rtol={LM_RTOL} atol={LM_ATOL} (max |err| "
+                        f"{name} position {t}: {int(bad.sum())} logits "
+                        f"outside rtol={LM_RTOL} atol={LM_ATOL} (max |err| "
                         f"{float(err.max()):.3g})")
                 worst = max(worst, float(err.max()))
     if counts != {"launches": layers * len(at), "plain_calls": 0} or \
             paths != {"wgmma": 0, "simt": layers * len(at)}:
-        raise AssertionError(f"prefills ran {counts}, by path {paths}")
-    log(f"  max |err| {worst:.3g} (rtol {LM_RTOL}, atol {LM_ATOL}); prefills "
-        f"{counts}, by path {paths}")
+        raise AssertionError(f"{name}: prefills ran {counts}, by path {paths}")
+    log(f"  {name} {list(cfg.layer_kinds)}{overrides or ''}, {n} tokens, "
+        f"positions {list(at)}: max |err| {worst:.3g}; prefills {counts}, by "
+        f"path {paths}")
     del model, caches
     torch.cuda.empty_cache()
+    return worst
 
 
 def _device_report(prof, wall_ms: float, what: str, top: int = 12) -> None:
@@ -2143,33 +2203,93 @@ def _device_report(prof, wall_ms: float, what: str, top: int = 12) -> None:
             f"{name[:110]}")
 
 
-def phase_lm_profile(model, tokens, steps: int = 3):
-    """torch.profiler over one prefill of ``tokens`` and ``steps`` decode
-    steps (after a warm-up of each): where the device time goes and how
-    much of the wall time the device idles."""
+def phase_lm_profile(model, inputs, slots: int, steps: int = 3):
+    """torch.profiler over one prefill of ``inputs`` and ``steps`` decode
+    steps on ``slots`` cache slots (after a warm-up of each): where the
+    device time goes and how much of the wall time the device idles."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.launch.steps import build_prefill_step, build_serve_step
-    b, s = tokens.shape
-    log(f"== profile: gemma2-9b prefill of {b} x {s} tokens and {steps} "
-        "decode steps from a 32768-slot cache (torch.profiler, CPU + CUDA)")
-    pre = build_prefill_step(model.cfg, batch=b, seq=s, model=model)
-    pre.fn(tokens)
-    torch.cuda.synchronize()
+    b, s = inputs.shape[:2]
+    log(f"== profile: {model.cfg.name} prefill of {b} x {s} tokens and "
+        f"{steps} decode steps from a {slots}-slot cache (torch.profiler, "
+        "CPU + CUDA)")
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts) as prof:
-        ms, _ = once_ms(lambda: pre.fn(tokens))
-    _device_report(prof, ms, "prefill")
-    serve = build_serve_step(model.cfg, batch=b, seq=32768, model=model)
-    caches = model.init_cache(b, 32768)
-    serve.fn(tokens[:, :1], 0, caches)
-    torch.cuda.synchronize()
-    with profile(activities=acts) as prof:
-        ms, _ = once_ms(lambda: [serve.fn(tokens[:, t:t + 1], t, caches)
-                                 for t in range(1, steps + 1)])
-    _device_report(prof, ms, f"{steps} decode steps")
+    with torch.inference_mode():
+        model.prefill(inputs)
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            ms, _ = once_ms(lambda: model.prefill(inputs))
+        _device_report(prof, ms, "prefill")
+        caches = model.init_cache(b, slots)
+        model.decode_step(inputs[:, :1], 0, caches)
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            ms, _ = once_ms(lambda: [
+                model.decode_step(inputs[:, t:t + 1], t, caches)
+                for t in range(1, steps + 1)])
+        _device_report(prof, ms, f"{steps} decode steps")
     del caches
     torch.cuda.empty_cache()
+
+
+#: the dense and MoE configs of the zoo, run after gemma2-9b, one at a time
+ZOO = ("stablelm-1.6b", "codeqwen1.5-7b", "hubert-xlarge",
+       "deepseek-moe-16b", "moonshot-v1-16b-a3b")
+#: their cuts: prefill_32k at S 8192 (batch 2 of 32); decode_32k at batch 2
+#: (of 128) on 8192 cache slots (of 32768: moonshot's 25.8 GB cache would
+#: not fit beside its 50.7 GB of weights), 16 steps
+ZOO_SEQ, ZOO_SLOTS, ZOO_STEPS = 8192, 8192, 16
+
+
+def phase_lm_zoo(seed: int, smi, reps: int = 3):
+    """The dense and MoE configs at full width and depth, bf16, weights
+    seeded on the card, one model resident at a time: prefill of 2 x 8192
+    tokens (hubert: seeded frame embeddings) through build_prefill_step,
+    16 decode steps of the decoders through build_serve_step, hubert's
+    serve step refused; flash_attention timed at hubert's D 80 shape; a
+    profiled prefill and 3 decode steps of each MoE config; then decode vs
+    prefill at 4 layers of each decoder's widths in float32.  Returns
+    (flash launches of the prefills, hubert's D 80 timing, the per-config
+    numbers)."""
+    import torch
+    from repro_torch.launch.steps import build_serve_step
+    t0 = time.perf_counter()
+    log(f"== LM zoo: {', '.join(ZOO)}; cuts: prefill_32k at S {ZOO_SEQ} "
+        f"and batch 2 (of 32768 x 32), decode_32k at batch 2 (of 128) on "
+        f"{ZOO_SLOTS} cache slots (of 32768), {ZOO_STEPS} steps")
+    results, d80, launches = {}, None, 0
+    for name in ZOO:
+        model = phase_lm_build(name, seed, smi)
+        cfg = model.cfg
+        inputs = _lm_inputs(cfg, seed + 1, 2, ZOO_SEQ)
+        res = phase_prefill(model, inputs, reps)
+        launches += res["launches"]
+        if cfg.encoder_only:
+            try:
+                build_serve_step(cfg, batch=2, seq=ZOO_SLOTS, model=model)
+            except ValueError as e:
+                log(f"  decode: refused ({e})")
+            else:
+                raise AssertionError(f"{name}: an encoder got a serve step")
+            q, k, v = _layer_qkv(model, inputs, 0)
+            d80 = _flash_case(f"flash_attention {name} layer 0", q, k, v,
+                              cfg.attn_cfg(cfg.layer_kinds[0]))
+            del q, k, v
+        else:
+            res.update(phase_decode(model, inputs, ZOO_STEPS, ZOO_SLOTS))
+        if cfg.family == "moe":
+            phase_lm_profile(model, inputs, ZOO_SLOTS)
+        results[name] = res
+        del model, inputs
+        torch.cuda.empty_cache()
+    log(f"== decode vs prefill at full widths, 4 layers, float32 (rtol "
+        f"{LM_RTOL}, atol {LM_ATOL})")
+    for name in ZOO:
+        if name != "hubert-xlarge":
+            results[name]["consistency_err"] = phase_lm_consistency(name,
+                                                                    seed)
+    log(f"  LM zoo phase {time.perf_counter() - t0:.1f} s")
+    return launches, d80, results
 
 
 def _unmasked_pairs(s: int, causal: bool, window):
@@ -2192,7 +2312,7 @@ def _layer_qkv(model, tokens, layer: int):
         x = model._embed(tokens)
         pos = torch.arange(x.shape[1], device=x.device)
         for i in range(layer):
-            x = block_fwd(kinds[i], model.layers[i], x, cfg, positions=pos)
+            x = block_fwd(kinds[i], model.layers[i], x, cfg, positions=pos)[0]
         p = model.layers[layer]
         h = _apply_norm(p["ln1"], x, cfg)
         q, k, v = _project(p["attn"], h, cfg.attn_cfg(kinds[layer]), pos)
@@ -2224,78 +2344,86 @@ def _flex_ms(q, k, v, causal, window, softcap):
         return cuda_ms(call, reps=5), call()
 
 
-def phase_flash_times(model, tokens, launches: int):
-    """flash_attention at the main path's shape, on the q, k, v of layer 0
-    (local) and layer 1 (global) of the prefill prompts: CUDA-event median
-    of 5, the plain version once, flex_attention (compiled) median of 5,
-    and the bound (4 D operations per unmasked pair and head at the bf16
+def _flash_case(name, q, k, v, acfg):
+    """One attention shape of the main path: CUDA-event median of 5, the
+    plain version once, flex_attention (compiled) median of 5, and the
+    bound (4 D operations per unmasked pair and head at the bf16
     tensor-core peak, against the bytes of q, k, v and out).  The band
-    must exclude the plain version with the layer's mask loosened (the
-    window dropped on the local layer, the causal mask on the global one),
-    and the kernel's float32 instantiation on the same q, k, v widened is
-    held at the float32 band.  The row gives the mean of one local and one
-    global launch: a prefill runs as many of each."""
+    must exclude the plain version with the layer's mask changed (the
+    window dropped on a local layer, the causal mask dropped on a causal
+    one, a causal mask added on an encoder's), and the kernel's float32
+    instantiation on the same q, k, v widened is held at the float32
+    band."""
     import torch
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                      flash_attention_plain)
+    b, hq, s, d = q.shape
+    args = (acfg.causal, acfg.window, acfg.softcap)
+    rtol, atol = FLASH_TOL[str(q.dtype).split(".")[1]]
+    ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, *args), reps=5)
+    plain_ms, want = once_ms(lambda: flash_attention_plain(q, k, v, *args))
+    got = flash_attention_cuda(q, k, v, *args)
+    err = check_close(f"{name} at main shapes", got, want, rtol, atol)
+    if not torch.equal(got, flash_attention_cuda(q, k, v, *args)):
+        raise AssertionError(f"{name}: repeat launch differs")
+    log(f"  {name}: median |out| {float(want.float().abs().median()):.3g}"
+        f", max |out| {float(want.float().abs().max()):.3g}")
+    if acfg.window is not None:
+        wrong = ("the window dropped", (acfg.causal, None, acfg.softcap))
+    elif acfg.causal:
+        wrong = ("the causal mask dropped", (False, None, acfg.softcap))
+    else:
+        wrong = ("a causal mask added", (True, None, acfg.softcap))
+    check_separates(name, want, flash_attention_plain(q, k, v, *wrong[1]),
+                    rtol, atol, wrong[0])
+    del got, want
+    q32, k32, v32 = (t.float() for t in (q, k, v))
+    check_close(f"{name} float32 on the same inputs widened",
+                flash_attention_cuda(q32, k32, v32, *args),
+                flash_attention_plain(q32, k32, v32, *args),
+                *FLASH_TOL["float32"])
+    del q32, k32, v32
+    torch.cuda.empty_cache()
+    pairs = _unmasked_pairs(s, acfg.causal, acfg.window)
+    flop = 4 * d * pairs * b * hq
+    t_ops = flop / PEAK_BF16
+    t_bytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() / PEAK_BYTES
+    try:
+        lib_ms, lib_out = _flex_ms(q, k, v, *args)
+        lib_err = float((lib_out.float() - flash_attention_cuda(
+            q, k, v, *args).float()).abs().max())
+        lib_note = f"flex_attention {lib_ms:.3f} ms (max |diff| vs the " \
+            f"kernel {lib_err:.3g})"
+    except Exception as e:   # the yardstick only: the port never calls it
+        lib_ms = None
+        lib_note = f"flex_attention none: {type(e).__name__}: " \
+            f"{str(e).splitlines()[0][:300] if str(e) else ''}"
+    out = dict(ms=ms, plain_ms=plain_ms, err=err, t_ops=t_ops,
+               t_bytes=t_bytes, lib_ms=lib_ms, tflops=flop / ms / 1e9,
+               share=max(t_ops, t_bytes) * 1e3 / ms)
+    log(f"  {name} (B {b}, Hq {hq}, Hkv {k.shape[1]}, S {s}, D {d}, "
+        f"{q.dtype}, causal {acfg.causal}, window {acfg.window}, softcap "
+        f"{acfg.softcap}): {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
+        f"{max(t_ops, t_bytes) * 1e3:.3f} ms "
+        f"({'operations' if t_ops >= t_bytes else 'bytes'}; "
+        f"{flop / 1e12:.3f} TFLOP, {flop / ms / 1e9:.1f} TFLOP/s, "
+        f"{100 * out['share']:.1f} % of the bound); {lib_note}")
+    return out
+
+
+def phase_flash_times(model, tokens, launches: int):
+    """flash_attention at the main path's shape, on the q, k, v of layer 0
+    (local) and layer 1 (global) of the prefill prompts (``_flash_case``).
+    The row gives the mean of one local and one global launch: a prefill
+    runs as many of each."""
+    import torch
     cfg = model.cfg
     per = {}
     for layer in (0, 1):
         kind = cfg.layer_kinds[layer]
-        acfg = cfg.attn_cfg(kind)
         q, k, v = _layer_qkv(model, tokens, layer)
-        b, hq, s, d = q.shape
-        args = (acfg.causal, acfg.window, acfg.softcap)
-        rtol, atol = FLASH_TOL[str(q.dtype).split(".")[1]]
-        name = f"flash_attention {kind}"
-        ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, *args), reps=5)
-        plain_ms, want = once_ms(lambda: flash_attention_plain(q, k, v,
-                                                               *args))
-        got = flash_attention_cuda(q, k, v, *args)
-        err = check_close(f"{name} at main shapes", got, want, rtol, atol)
-        if not torch.equal(got, flash_attention_cuda(q, k, v, *args)):
-            raise AssertionError(f"{name}: repeat launch differs")
-        log(f"  {name}: median |out| {float(want.float().abs().median()):.3g}"
-            f", max |out| {float(want.float().abs().max()):.3g}")
-        wrong = ("the window dropped", (acfg.causal, None, acfg.softcap)) \
-            if acfg.window is not None else \
-            ("the causal mask dropped", (False, None, acfg.softcap))
-        check_separates(name, want, flash_attention_plain(q, k, v, *wrong[1]),
-                        rtol, atol, wrong[0])
-        del got, want
-        q32, k32, v32 = (t.float() for t in (q, k, v))
-        check_close(f"{name} float32 on the same inputs widened",
-                    flash_attention_cuda(q32, k32, v32, *args),
-                    flash_attention_plain(q32, k32, v32, *args),
-                    *FLASH_TOL["float32"])
-        del q32, k32, v32
-        torch.cuda.empty_cache()
-        pairs = _unmasked_pairs(s, acfg.causal, acfg.window)
-        t_ops = 4 * d * pairs * b * hq / PEAK_BF16
-        t_bytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() \
-            / PEAK_BYTES
-        try:
-            lib_ms, lib_out = _flex_ms(q, k, v, *args)
-            lib_err = float((lib_out.float() - flash_attention_cuda(
-                q, k, v, *args).float()).abs().max())
-            lib_note = f"flex_attention {lib_ms:.3f} ms (max |diff| vs the " \
-                f"kernel {lib_err:.3g})"
-        except Exception as e:   # the yardstick only: the port never calls it
-            lib_ms = None
-            lib_note = f"flex_attention none: {type(e).__name__}: " \
-                f"{str(e).splitlines()[0][:300] if str(e) else ''}"
-        flop = 4 * d * pairs * b * hq
-        per[kind] = dict(ms=ms, plain_ms=plain_ms, err=err, t_ops=t_ops,
-                         t_bytes=t_bytes, lib_ms=lib_ms,
-                         tflops=flop / ms / 1e9,
-                         share=max(t_ops, t_bytes) * 1e3 / ms)
-        log(f"  flash_attention {kind} (B {b}, Hq {hq}, Hkv {k.shape[1]}, S "
-            f"{s}, D {d}, {q.dtype}, window {acfg.window}, softcap "
-            f"{acfg.softcap}): {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
-            f"{max(t_ops, t_bytes) * 1e3:.3f} ms "
-            f"({'operations' if t_ops >= t_bytes else 'bytes'}; "
-            f"{flop / 1e12:.3f} TFLOP, {flop / ms / 1e9:.1f} TFLOP/s, "
-            f"{100 * per[kind]['share']:.1f} % of the bound); {lib_note}")
+        per[kind] = _flash_case(f"flash_attention {kind}", q, k, v,
+                                cfg.attn_cfg(kind))
         del q, k, v
         torch.cuda.empty_cache()
     mean = lambda key: sum(p[key] for p in per.values()) / len(per)
@@ -2309,12 +2437,17 @@ def phase_flash_times(model, tokens, launches: int):
     row["tflops"] = mean("tflops")
     row["bound_share"] = row["bound_ms"] / row["ms"]
     for kind, p in per.items():
-        row[f"ms_{kind}"] = p["ms"]
-        row[f"bound_ms_{kind}"] = max(p["t_ops"], p["t_bytes"]) * 1e3
-        row[f"library_ms_{kind}"] = p["lib_ms"]
-        row[f"tflops_{kind}"] = p["tflops"]
-        row[f"bound_share_{kind}"] = p["share"]
+        _add_flash_shape(row, kind, p)
     return row
+
+
+def _add_flash_shape(row, tag: str, p) -> None:
+    """One timed shape's numbers on the flash row, under ``*_<tag>``."""
+    row[f"ms_{tag}"] = p["ms"]
+    row[f"bound_ms_{tag}"] = max(p["t_ops"], p["t_bytes"]) * 1e3
+    row[f"library_ms_{tag}"] = p["lib_ms"]
+    row[f"tflops_{tag}"] = p["tflops"]
+    row[f"bound_share_{tag}"] = p["share"]
 
 
 # --------------------------------------------------------------------------
@@ -2834,17 +2967,26 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     log(f"  CT phases done at {time.perf_counter() - t_start:.0f}s; device "
         f"memory freed to {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-    model = phase_lm_build(args.seed)
+    model = phase_lm_build("gemma2-9b", args.seed, smi)
     prompts = _lm_tokens(args.seed, 2, 8192, model.cfg.vocab)
-    c_prefill, _ = phase_prefill(model, prompts)
-    phase_decode(model, prompts)
+    gemma_launches = phase_prefill(model, prompts)["launches"]
+    phase_decode(model, prompts, steps=32, slots=32768)
     log(f"== flash_attention times at the main path's shape (card: {smi})")
-    rows.append(phase_flash_times(model, prompts,
-                                  c_prefill["flash_attention"]["launches"]))
-    phase_lm_profile(model, prompts)
+    flash_row = phase_flash_times(model, prompts, gemma_launches)
+    rows.append(flash_row)
+    phase_lm_profile(model, prompts, slots=32768)
     del model, prompts
     torch.cuda.empty_cache()
-    phase_lm_consistency(args.seed)
+    log(f"== decode vs prefill at gemma2-9b's widths, 4 layers, float32, "
+        f"window 32 (rtol {LM_RTOL}, atol {LM_ATOL})")
+    phase_lm_consistency("gemma2-9b", args.seed, n=96, at=(31, 32, 63, 95),
+                         window=32)
+    zoo_launches, d80, _ = phase_lm_zoo(args.seed, smi)
+    flash_row["launches"] += zoo_launches
+    _add_flash_shape(flash_row, "hubert_d80", d80)
+    log(f"  flash_attention launches on the main paths: "
+        f"{flash_row['launches']} (gemma2-9b {gemma_launches}, the zoo "
+        f"{zoo_launches})")
     log(f"total {time.perf_counter() - t_start:.0f}s")
     print(smi)
     print(json.dumps({"kernels": rows}))

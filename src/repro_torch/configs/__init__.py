@@ -3,8 +3,11 @@
 Port of ``repro/configs``.  ``get_config(name)`` returns the full published
 config, ``reduced(name)`` a small config of the same family for CPU tests,
 ``input_specs(cfg, shape)`` the concrete shape and dtype of every input of
-a (arch x shape) cell.  Only gemma2-9b is registered: the reference's other
-architectures need blocks the port does not run yet (ROADMAP A14).
+a (arch x shape) cell.  Six of the reference's ten architectures are
+registered: gemma2-9b, the dense stablelm-1.6b and codeqwen1.5-7b, the
+encoder hubert-xlarge (frame-embedding inputs) and the MoE
+deepseek-moe-16b and moonshot-v1-16b-a3b.  The other four need blocks the
+port does not run yet (ROADMAP A3).
 """
 
 from __future__ import annotations
@@ -15,15 +18,20 @@ import torch
 
 from repro_torch.models.lm import ArchConfig, block_cache_shapes
 
-from . import gemma2_9b
+from . import (codeqwen1_5_7b, deepseek_moe_16b, gemma2_9b, hubert_xlarge,
+               moonshot_v1_16b_a3b, stablelm_1_6b)
 
 _MODULES = {
     "gemma2-9b": gemma2_9b,
+    "codeqwen1.5-7b": codeqwen1_5_7b,
+    "stablelm-1.6b": stablelm_1_6b,
+    "hubert-xlarge": hubert_xlarge,
+    "moonshot-v1-16b-a3b": moonshot_v1_16b_a3b,
+    "deepseek-moe-16b": deepseek_moe_16b,
 }
 #: the reference's other architectures, not registered yet
-NOT_PORTED = ("zamba2-7b", "codeqwen1.5-7b", "stablelm-1.6b", "minicpm3-4b",
-              "hubert-xlarge", "llama-3.2-vision-11b", "moonshot-v1-16b-a3b",
-              "deepseek-moe-16b", "xlstm-350m")
+NOT_PORTED = ("zamba2-7b", "minicpm3-4b", "llama-3.2-vision-11b",
+              "xlstm-350m")
 
 ARCH_NAMES = tuple(_MODULES)
 
@@ -31,7 +39,7 @@ ARCH_NAMES = tuple(_MODULES)
 def _module(name: str):
     if name in NOT_PORTED:
         raise NotImplementedError(f"{name} is not ported to PyTorch yet "
-                                  "(ROADMAP A14)")
+                                  "(ROADMAP A3)")
     return _MODULES[name]
 
 
@@ -75,19 +83,22 @@ def input_specs(cfg: ArchConfig, shape: str, batch: Optional[int] = None,
     * prefill_* -> {tokens}
     * decode_* / long_* -> {token, pos, caches}: ``pos`` is a Python int
       (shape ()), ``caches`` a list of each layer's {name: (shape, dtype)}
+
+    Audio and encoder-only models (hubert) take precomputed frame
+    embeddings ``(b, s, d_model)`` in the model's type for ``tokens`` and
+    ``token``, as the reference's stub frontend.
     """
     s0, b0 = SHAPES[shape]
     seq, batch = seq or s0, batch or b0
 
     def tok(b, s):
+        if cfg.encoder_only or cfg.family == "audio":
+            return ((b, s, cfg.d_model), cfg.dtype)
         return ((b, s), torch.int32)
 
     if cfg.family == "vlm":
         raise NotImplementedError("cross-attention inputs are not ported "
-                                  "yet (ROADMAP A14)")
-    if cfg.encoder_only or cfg.family == "audio":
-        raise NotImplementedError("frame-embedding inputs are not ported "
-                                  "yet (ROADMAP A14)")
+                                  "yet (ROADMAP A3)")
     if shape.startswith("train"):
         return {"tokens": tok(batch, seq), "labels": ((batch, seq),
                                                       torch.int32)}

@@ -29,18 +29,21 @@
 //   signalled full on an mbarrier; the warpgroup that releases a stage
 //   last refills it with the tile STAGES on, so loads run ahead of the
 //   products.  Per key tile a warpgroup runs S = Q K^T by wgmma with both
-//   operands in shared memory (128-byte swizzled, as TMA lays them out),
+//   operands in shared memory (swizzled as TMA lays them out: 128-byte
+//   rows at D = 64, 128 and 256, 64-byte at D = 32, 32-byte at D = 80),
 //   the soft-cap, mask and online softmax on the S fragment in registers,
 //   and O += P V by wgmma with P in registers (the accumulator layout of S
 //   is the A-operand layout of P) and V read from shared memory as an
 //   MN-major operand.  The two warpgroups run independently, so one's
 //   softmax overlaps the other's products.  Shared memory at D = 256: Q
-//   64 KiB + 2 stages x (K + V) 64 KiB = 192 KiB.  P V is one m64nDk16
-//   product per 16 keys (V's subtiles are its MN atoms).  There is no
-//   producer warp: ptxas compiles the whole kernel under its launch
-//   bound's register cap (168 a thread at 384 threads, and also at 288,
-//   which it rounds up to whole warpgroups) whatever setmaxnreg grants at
-//   run time, while the D = 256 consumer needs about 215 (O alone is 128);
+//   64 KiB + 2 stages x (K + V) 64 KiB = 192 KiB; at D = 80: 20 KiB + 4 x
+//   20 KiB.  P V is one m64nDk16 product per 16 keys (V's subtiles are its
+//   MN atoms; m64n80k16 at D = 80, 40 accumulators a thread).  D = 80 is
+//   not padded: Q K^T takes five k16 steps, one per 16-column subtile.
+//   There is no producer warp: ptxas compiles the whole kernel under its
+//   launch bound's register cap (168 a thread at 384 threads, and also at
+//   288, which it rounds up to whole warpgroups) whatever setmaxnreg grants
+//   at run time, while the D = 256 consumer needs about 215 (O alone is 128);
 //   with a producer warpgroup it spilled and ptxas serialised its wgmma
 //   (ptxas -v).
 //
@@ -81,7 +84,8 @@
 // p.v) per unmasked (query, key) pair and head, against the H100's
 // 989 TFLOP/s of dense bf16 tensor-core work; at gemma2-9b's prefill shape
 // (B 2, Hq 16, S 8192, D 256) that is 1.1 ms for a global layer and 0.83 ms
-// for a local one (window 4096).  The bytes (q, k, v read once, out written
+// for a local one (window 4096); at hubert-xlarge's (B 2, H 16, S 8192,
+// D 80, non-causal) 0.69 ms.  The bytes (q, k, v read once, out written
 // once, 0.4 GB) take 0.12 ms: bound by operations.  The hi/lo P costs the
 // tensor-core path 1.5 times that work; the fp32 path runs at 67 TFLOP/s.
 //
@@ -279,15 +283,20 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 // Shared-memory geometry of head dim D.  Every 64-row tile of Q, K or V is
 // stored as D / W subtiles of 64 rows x W columns, each row W bf16 (128
-// bytes for W = 64, 64 bytes for W = 32), swizzled by TMA in 8-row atoms.
+// bytes for W = 64, 64 for W = 32, 32 for W = 16), swizzled by TMA in
+// 8-row atoms.  W is the widest of 64, 32, 16 that divides D: D = 80
+// (hubert-xlarge, 1280 / 16 heads) takes five 16-column subtiles with the
+// 32-byte swizzle, so no column of a tile is padding.
 template <int D>
 struct Cfg {
-  static constexpr int W = D >= 64 ? 64 : 32;     // columns of a subtile
+  static_assert(D % 16 == 0, "D must be a multiple of 16");
+  static constexpr int W = D % 64 == 0 ? 64 : D % 32 == 0 ? 32 : 16;
   static constexpr int NSUB = D / W;              // subtiles of a tile
   static constexpr int RB = 2 * W;                // bytes of a subtile row
   static constexpr int SUB = 64 * RB;             // bytes of a subtile
   static constexpr int ATOM = 8 * RB;             // bytes of a swizzle atom
-  static constexpr int LAYOUT = W == 64 ? 1 : 2;  // wgmma: 128B / 64B swizzle
+  // wgmma descriptor layout: 1 = 128B, 2 = 64B, 3 = 32B swizzle
+  static constexpr int LAYOUT = W == 64 ? 1 : W == 32 ? 2 : 3;
   static constexpr int STAGES = D == 256 ? 2 : 4;
   static constexpr int Q_BYTES = 2 * NSUB * SUB;  // two halves of 64 rows
   static constexpr int KV_BYTES = 2 * NSUB * SUB; // K and V of one tile
@@ -454,6 +463,33 @@ __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D (64 x 80, fp32) += A (64 x 16, bf16 in registers) * B (16 x 80, bf16
+// MN-major in shared memory: five 16-column atoms, 32-byte swizzle).
+__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40], const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // D (64 x 128, fp32) += A (64 x 16, bf16 in registers) * B (16 x 128, bf16
 // MN-major in shared memory).
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
@@ -559,6 +595,8 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
     wgmma_rs_n256(o, a, db);
   } else if constexpr (D == 128) {
     wgmma_rs_n128(o, a, db);
+  } else if constexpr (D == 80) {
+    wgmma_rs_n80(o, a, db);
   } else if constexpr (D == 64) {
     wgmma_rs_n64(o, a, db);
   } else {
@@ -854,7 +892,9 @@ cudaError_t make_map(CUtensorMap* map, const void* ptr, int heads, int s,
   const CUresult r = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
       strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      w == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      w == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+      : w == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                : CU_TENSOR_MAP_SWIZZLE_32B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
@@ -890,6 +930,8 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
                            window, softcap, st);                          \
     case 64: return fn<64>(q, k, v, out, b, hq, hkv, s, scale, causal,    \
                            window, softcap, st);                          \
+    case 80: return fn<80>(q, k, v, out, b, hq, hkv, s, scale, causal,    \
+                           window, softcap, st);                          \
     case 128: return fn<128>(q, k, v, out, b, hq, hkv, s, scale, causal,  \
                              window, softcap, st);                        \
     case 256: return fn<256>(q, k, v, out, b, hq, hkv, s, scale, causal,  \
@@ -910,7 +952,8 @@ cudaError_t launch(int d, int dtype, const void* q, const void* k,
 
 // q (b, hq, s, d), k and v (b, hkv, s, d), out like q; contiguous, on
 // `device`, of one type: dtype 0 float32 (the SIMT kernel), 1 bfloat16 (the
-// tensor-core kernel; pointers 16-byte aligned).  d is 32, 64, 128 or 256;
+// tensor-core kernel; pointers 16-byte aligned).  d is 32, 64, 80, 128 or
+// 256;
 // hq a multiple of hkv.  scale is 1/sqrt(d) as float (the bf16 kernel
 // rounds it to bf16); window <= 0 means no window, softcap <= 0 no
 // soft-cap.  Returns cudaGetLastError() or the first error met.

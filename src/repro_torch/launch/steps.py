@@ -4,10 +4,13 @@ Port of ``build_prefill_step`` / ``build_serve_step`` of
 ``repro/launch/steps.py`` for one device: there are no shardings and no
 ``jit``.  Each builder returns the step callable and the shapes of its
 inputs (``repro_torch.configs.input_specs``), with the model it runs.  The
-training builder is not ported yet (ROADMAP A14).
+training builder is not ported yet (ROADMAP A3).
 
     step = build_prefill_step(cfg, batch=2, seq=8192)   # on the GPU
     logits = step.fn(tokens)                             # (B, 1, V) float32
+
+``tokens`` are token ids (B, S), or frame embeddings (B, S, d_model) for an
+audio model (hubert-xlarge), as ``step.in_specs["tokens"]`` says.
 
 The builders run on the current CUDA device unless ``device="cpu"`` is
 passed, and raise when there is none.
@@ -20,7 +23,7 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
-from ..configs import input_specs
+from ..configs import cell_skip_reason, input_specs
 from ..core.device import DeviceLike, resolve_device
 from ..models.lm import LM, ArchConfig
 
@@ -49,8 +52,9 @@ def build_prefill_step(cfg: ArchConfig, shape: str = "prefill_32k", *,
                        model: Optional[LM] = None, device: DeviceLike = None,
                        seed: int = 0) -> BuiltStep:
     """``fn(tokens) -> logits``: last-position float32 logits (B, 1, V) of
-    the prompts (B, S).  ``batch`` / ``seq`` cut the cell's shape; the model
-    is ``model``, or a new one with weights drawn from ``seed``."""
+    the prompts (B, S), or of frame embeddings (B, S, d_model) for an audio
+    model.  ``batch`` / ``seq`` cut the cell's shape; the model is
+    ``model``, or a new one with weights drawn from ``seed``."""
     lm = _model(cfg, model, device, seed)
     specs = input_specs(cfg, shape, batch=batch, seq=seq)
 
@@ -68,7 +72,11 @@ def build_serve_step(cfg: ArchConfig, shape: str = "decode_32k", *,
     """``fn(token, pos, caches) -> (logits, caches)``: one decode step of
     tokens (B, 1) at position ``pos`` on caches from
     ``model.init_cache(batch, seq)``, updated in place (the reference
-    donates them)."""
+    donates them).  An encoder-only config has no decode step: it raises
+    with the cell's skip reason."""
+    reason = cell_skip_reason(cfg, shape) if cfg.encoder_only else None
+    if reason is not None:
+        raise ValueError(f"{cfg.name}, {shape}: {reason}")
     lm = _model(cfg, model, device, seed)
     specs = input_specs(cfg, shape, batch=batch, seq=seq)
 

@@ -1,12 +1,16 @@
-"""The LM side of the port: dense attention blocks on one device.
+"""The LM side of the port: attention and MoE blocks on one device.
 
 * :mod:`.common` — norms, rotary embedding, init;
 * :mod:`.attention` — grouped-query attention (prefill on the
   ``flash_attention`` kernel, decode on a ring cache);
 * :mod:`.ffn` — gated and plain MLPs;
+* :mod:`.moe` — the mixture-of-experts FFN (top-k routing with a capacity
+  per expert, shared experts, the load-balance loss);
+* :mod:`.perf` — the reference's perf-variant flags;
 * :mod:`.lm` — ``ArchConfig``, the blocks, the ``LM`` module and
   ``load_reference_params``.
 
-MLA, MoE, Mamba2, xLSTM and cross-attention are not ported yet (ROADMAP
-A14).
+MLA, Mamba2, xLSTM and cross-attention are not ported yet (ROADMAP A3).
 """
+
+from . import moe  # noqa: F401

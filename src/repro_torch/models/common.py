@@ -2,7 +2,7 @@
 
 Port of ``repro/models/common.py`` for one device: there are no sharding
 rules (``ShardingRules`` is a mesh concept), and the chunked cross-entropy
-belongs to training, which is not ported yet (ROADMAP A14).  Random init
+belongs to training, which is not ported yet (ROADMAP A3).  Random init
 draws from an explicit ``torch.Generator`` with the reference's
 distributions; the bits differ from ``jax.random``'s, so parity tests carry
 weights across with :func:`repro_torch.models.lm.load_reference_params`.

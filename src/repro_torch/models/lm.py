@@ -1,4 +1,4 @@
-"""The composable LM, for the dense attention blocks, on one device.
+"""The composable LM, for the attention and MoE blocks, on one device.
 
 Port of ``repro/models/lm.py``.  An architecture is a repeating pattern of
 typed blocks plus an optional prelude.  The reference stacks each pattern
@@ -12,11 +12,15 @@ Block kinds ported:
 ``attn_local``   same, sliding window + soft-cap (gemma2; sandwich norms)
 ``attn_global``  same, full attention + soft-cap (gemma2)
 ``attn_bidir``   non-causal LayerNorm encoder block (hubert)
+``moe``          GQA attention + MoE FFN (deepseek, moonshot)
+``dense``        GQA attention + dense gated FFN of ``d_ff`` (their first
+                 layer)
 
-Every other kind (``mla``, ``moe``, ``dense``, ``xattn``, ``mamba``,
-``mamba_shared``, ``mlstm``, ``slstm``) raises ``NotImplementedError``
-(ROADMAP A14).  Caches: each attention layer owns ``{"k", "v", "pos"}``;
-sliding-window layers a ring of ``min(window, s_max)`` slots.
+Every other kind (``mla``, ``xattn``, ``mamba``, ``mamba_shared``,
+``mlstm``, ``slstm``) raises ``NotImplementedError`` (ROADMAP A3).
+Caches: each attention layer owns ``{"k", "v", "pos"}``; sliding-window
+layers a ring of ``min(window, s_max)`` slots.  Audio models (hubert) take
+float frame embeddings (B, S, d_model) where the others take token ids.
 """
 
 from __future__ import annotations
@@ -32,21 +36,25 @@ from torch import nn
 from ..core.device import DeviceLike, resolve_device
 from . import attention as attn_mod
 from . import ffn as ffn_mod
+from . import moe as moe_mod
 from .attention import AttnConfig
 from .common import dense_init, embed_init, layer_norm, rms_norm
 from .ffn import FFNConfig
+from .moe import MoEConfig
 
-ATTN_KINDS = ("attn", "attn_local", "attn_global", "attn_bidir")
+#: block kinds that attend by GQA (every ported kind)
+ATTN_KINDS = ("attn", "attn_local", "attn_global", "attn_bidir", "dense",
+              "moe")
 #: block kinds of the reference that the port does not run yet
-NOT_PORTED_KINDS = ("mla", "moe", "dense", "xattn", "mamba", "mamba_shared",
-                    "mlstm", "slstm")
+NOT_PORTED_KINDS = ("mla", "xattn", "mamba", "mamba_shared", "mlstm",
+                    "slstm")
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     """The reference's ``ArchConfig``, field for field, with ``dtype`` a
-    torch dtype.  The MLA, MoE, SSM and VLM fields are carried so that
-    config files copy over; their blocks are not ported yet."""
+    torch dtype.  The MLA, SSM and VLM fields are carried so that config
+    files copy over; their blocks are not ported yet."""
     name: str
     family: str                 # dense | moe | hybrid | ssm | audio | vlm
     n_layers: int
@@ -109,6 +117,9 @@ class ArchConfig:
         return tuple(self.prelude) + tuple(self.pattern) * self.n_repeats
 
     def attn_cfg(self, kind: str) -> AttnConfig:
+        """The attention of block ``kind`` (``dense`` and ``moe`` blocks
+        attend as ``attn``)."""
+        kind = kind if kind.startswith("attn") else "attn"
         return AttnConfig(
             d_model=self.d_model, n_heads=self.n_heads, n_kv=self.n_kv,
             head_dim=self.hd,
@@ -121,6 +132,11 @@ class ArchConfig:
         return FFNConfig(self.d_model, self.d_ff, self.activation,
                          gated=self.norm == "rms")
 
+    def moe_cfg(self) -> MoEConfig:
+        return MoEConfig(self.d_model, self.d_expert or self.d_ff,
+                         self.n_experts, self.top_k, self.n_shared,
+                         activation=self.activation)
+
     def param_count(self) -> int:
         """Parameter count, from shapes alone (a model on the meta
         device)."""
@@ -130,7 +146,7 @@ class ArchConfig:
 def _check_kind(kind: str) -> None:
     if kind in NOT_PORTED_KINDS:
         raise NotImplementedError(
-            f"block kind {kind!r} is not ported to PyTorch yet (ROADMAP A14)")
+            f"block kind {kind!r} is not ported to PyTorch yet (ROADMAP A3)")
     if kind not in ATTN_KINDS:
         raise ValueError(f"unknown block kind {kind!r}")
 
@@ -160,35 +176,53 @@ def init_block(gen: Optional[torch.Generator], kind: str, cfg: ArchConfig,
     dt = cfg.dtype
     p = {"ln1": _norm_init(cfg, dt, device),
          "attn": attn_mod.init_gqa(gen, cfg.attn_cfg(kind), dt, device),
-         "ln2": _norm_init(cfg, dt, device),
-         "ffn": ffn_mod.init_ffn(gen, cfg.ffn_cfg(), dt, device)}
+         "ln2": _norm_init(cfg, dt, device)}
+    if kind == "moe":
+        p["moe"] = moe_mod.init_moe(gen, cfg.moe_cfg(), dt, device)
+    elif kind == "dense":                       # always gated, of d_ff
+        p["ffn"] = ffn_mod.init_ffn(
+            gen, FFNConfig(cfg.d_model, cfg.d_ff, cfg.activation, True), dt,
+            device)
+    else:
+        p["ffn"] = ffn_mod.init_ffn(gen, cfg.ffn_cfg(), dt, device)
     if kind in ("attn_local", "attn_global"):       # gemma2 sandwich norms
         p["post_ln1"] = _norm_init(cfg, dt, device)
         p["post_ln2"] = _norm_init(cfg, dt, device)
     return p
 
 
-def _attn_then_ffn(p, x: torch.Tensor, a: torch.Tensor,
-                   cfg: ArchConfig) -> torch.Tensor:
+def _attn_then_ffn(p, x: torch.Tensor, a: torch.Tensor, cfg: ArchConfig,
+                   moe_stats=None):
     """The rest of a block after its attention output ``a``: the residual
-    add (through gemma2's post-norm), then the pre-normed FFN and its
-    post-norm, added to the residual."""
+    add (through gemma2's post-norm), then the pre-normed FFN (or MoE) and
+    its post-norm, added to the residual.  Returns (x, the MoE aux loss,
+    or None for an FFN)."""
     if "post_ln1" in p:
         a = _apply_norm(p["post_ln1"], a, cfg)
     x = x + a
-    f = ffn_mod.ffn_fwd(p["ffn"], _apply_norm(p["ln2"], x, cfg),
-                        cfg.ffn_cfg())
+    h = _apply_norm(p["ln2"], x, cfg)
+    if "moe" in p:
+        f, aux = moe_mod.moe_fwd(p["moe"], h, cfg.moe_cfg(), moe_stats)
+    else:
+        f, aux = ffn_mod.ffn_fwd(p["ffn"], h, cfg.ffn_cfg()), None
     if "post_ln2" in p:
         f = _apply_norm(p["post_ln2"], f, cfg)
-    return x + f
+    return x + f, aux
 
 
 def block_fwd(kind: str, p, x: torch.Tensor, cfg: ArchConfig,
-              positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+              positions: Optional[torch.Tensor] = None, moe_stats=None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence block.  Returns (x, aux): the MoE aux loss of a
+    ``moe`` block, a float32 zero otherwise.  ``moe_stats``: see
+    :func:`repro_torch.models.moe.moe_fwd`."""
     _check_kind(kind)
     a = attn_mod.gqa_fwd(p["attn"], _apply_norm(p["ln1"], x, cfg),
                          cfg.attn_cfg(kind), positions=positions)
-    return _attn_then_ffn(p, x, a, cfg)
+    x, aux = _attn_then_ffn(p, x, a, cfg, moe_stats)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def block_decode(kind: str, p, x: torch.Tensor, cache, cfg: ArchConfig,
@@ -199,7 +233,7 @@ def block_decode(kind: str, p, x: torch.Tensor, cache, cfg: ArchConfig,
         raise ValueError("an encoder block has no decode step")
     a, cache = attn_mod.gqa_decode(p["attn"], _apply_norm(p["ln1"], x, cfg),
                                    cache, cfg.attn_cfg(kind), pos)
-    return _attn_then_ffn(p, x, a, cfg), cache
+    return _attn_then_ffn(p, x, a, cfg)[0], cache
 
 
 def block_cache_shapes(kind: str, cfg: ArchConfig, batch: int,
@@ -286,24 +320,37 @@ class LM(nn.Module):
 
     # ---- forward -----------------------------------------------------------
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Token ids through the embedding; float inputs (an audio model's
+        frame embeddings) cast to the model's type, as they are."""
         cfg = self.cfg
-        x = self.embed[tokens]
+        if tokens.is_floating_point():
+            x = tokens.to(cfg.dtype)
+        else:
+            x = self.embed[tokens]
         if cfg.embed_scale:
             # the reference multiplies by a Python float, which JAX rounds
             # to the model's type first
             x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
         return x
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """Full-sequence pass: the final-normed hidden states (B, S, D).
-        (The reference also returns its decode caches and MoE loss; the
-        port's prefill needs neither.)"""
+    def forward(self, tokens: torch.Tensor, return_aux: bool = False,
+                moe_stats: Optional[Dict[str, Any]] = None):
+        """Full-sequence pass: the final-normed hidden states (B, S, D) of
+        token ids (B, S) or frame embeddings (B, S, d_model); with
+        ``return_aux``, (hidden, the MoE aux loss summed over the layers in
+        order, float32).  (The reference also returns its decode caches;
+        the port's prefill needs none.)  ``moe_stats``: see
+        :func:`repro_torch.models.moe.moe_fwd`."""
         cfg = self.cfg
         x = self._embed(tokens)
         positions = torch.arange(x.shape[1], device=x.device)
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for kind, p in zip(cfg.layer_kinds, self.layers):
-            x = block_fwd(kind, p, x, cfg, positions=positions)
-        return _apply_norm(self.final_norm, x, cfg)
+            x, aux = block_fwd(kind, p, x, cfg, positions=positions,
+                               moe_stats=moe_stats)
+            aux_total = aux_total + aux
+        hidden = _apply_norm(self.final_norm, x, cfg)
+        return (hidden, aux_total) if return_aux else hidden
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         """float32 logits against the (tied) embedding, with the final
@@ -327,8 +374,8 @@ class LM(nn.Module):
                 for kind in self.cfg.layer_kinds]
 
     def decode_step(self, token: torch.Tensor, pos: int, caches):
-        """One-token decode.  token: (B, 1) integer; pos: the absolute
-        position (int).  Returns (logits
+        """One-token decode.  token: (B, 1) integer (or (B, 1, d_model)
+        features); pos: the absolute position (int).  Returns (logits
         (B, 1, V) float32, caches), the caches updated in place."""
         cfg = self.cfg
         x = self._embed(token)
@@ -369,7 +416,11 @@ def load_reference_params(tree: Dict[str, Any], cfg: ArchConfig,
     pattern position over the repeats: ``stack/b{i}/...[r]`` is layer
     ``len(prelude) + r * len(pattern) + i`` (for gemma2, repeat r runs b0,
     the local layer, then b1, the global one); ``prelude/p{i}`` is layer
-    i."""
+    i.
+
+    Every leaf keeps its own type (the MoE router is float32 in a bf16
+    model, as the reference's), and must have the type of the port's
+    parameter it fills."""
     dev = resolve_device(device)
     model = LM(cfg, device="meta")
     state: Dict[str, Any] = {}
@@ -385,8 +436,14 @@ def load_reference_params(tree: Dict[str, Any], cfg: ArchConfig,
             layer = n_pre + r * n_pat + i
             for key, arr in flat.items():
                 state[f"layers.{layer}.{key}"] = np.asarray(arr)[r]
-    state = {k: _tensor(v).to(device=dev, dtype=cfg.dtype)
-             for k, v in state.items()}
+    state = {k: _tensor(v) for k, v in state.items()}
+    want = {k: t.dtype for k, t in model.state_dict().items()}
+    wrong = {k: (str(t.dtype), str(want[k])) for k, t in state.items()
+             if k in want and t.dtype != want[k]}
+    if wrong:
+        raise ValueError(f"{cfg.name}: leaves of another type than the "
+                         f"model's (got, want): {wrong}")
+    state = {k: t.to(dev) for k, t in state.items()}
     model.load_state_dict(state, strict=True, assign=True)
     model.device = dev
     return model

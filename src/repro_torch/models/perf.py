@@ -1,0 +1,24 @@
+"""Perf-variant flags of the model code.
+
+Port of ``repro/models/perf.py``: the reference's ``FLAGS`` dict, copied as
+it is.  The model code reads a flag when it runs; a benchmark or a test may
+flip one.  Of these, only ``moe_onehot_dispatch`` is read by a ported
+module (``models/moe.py``); the others belong to blocks the port does not
+run yet (ROADMAP A3) and are carried for them."""
+
+FLAGS = {
+    # mLSTM: chunked query processing with static causal block skipping
+    # (replaces the (B,H,S,S) gate tensor + seq_q resharding constraint).
+    # Baseline (paper-faithful parallel form) = False.
+    "mlstm_chunked": False,
+    # MoE: baseline one-hot-cumsum dispatch (True) vs sort-based ranking
+    # (False, the default)
+    "moe_onehot_dispatch": False,
+    # MLA: query-row sharded attention vs seq_kv sharding (baseline)
+    "mla_seq_parallel": True,
+    # mamba2: explicit heads_inner constraints on xh/dt (baseline True)
+    "mamba_head_constraints": True,
+    # save fwd collective results across remat instead of recomputing
+    # them in the backward pass
+    "remat_save_collectives": False,
+}

@@ -124,7 +124,7 @@ def _layer_qkv(model, tokens, layer):
         x = model._embed(tokens)
         pos = torch.arange(x.shape[1])
         for i in range(layer):
-            x = block_fwd(kinds[i], model.layers[i], x, cfg, positions=pos)
+            x = block_fwd(kinds[i], model.layers[i], x, cfg, positions=pos)[0]
         p = model.layers[layer]
         h = _apply_norm(p["ln1"], x, cfg)
         return _project(p["attn"], h, cfg.attn_cfg(kinds[layer]), pos)

@@ -189,13 +189,13 @@ def test_param_count_equals_reference():
 
 
 def test_unported_architectures_and_blocks_raise():
-    with pytest.raises(NotImplementedError, match="A14"):
-        tconfigs.get_config("stablelm-1.6b")
+    with pytest.raises(NotImplementedError, match="A3"):
+        tconfigs.get_config("minicpm3-4b")
     assert set(tconfigs.NOT_PORTED) | set(tconfigs.ARCH_NAMES) == \
         set(jconfigs.ARCH_NAMES)
     cfg = dataclasses.replace(tconfigs.reduced("gemma2-9b"),
-                              pattern=("attn", "moe"))
-    with pytest.raises(NotImplementedError, match="A14"):
+                              pattern=("attn", "mla"))
+    with pytest.raises(NotImplementedError, match="A3"):
         LM(cfg, device="cpu")
 
 
@@ -213,8 +213,11 @@ def test_input_specs_are_concrete():
     assert dec["caches"][1]["pos"] == ((32768,), torch.int32)
     train = tconfigs.input_specs(cfg, "train_4k")
     assert train["labels"] == ((256, 4096), torch.int32)
-    with pytest.raises(NotImplementedError, match="A14"):
-        tconfigs.input_specs(dataclasses.replace(cfg, encoder_only=True),
+    assert tconfigs.input_specs(dataclasses.replace(cfg, encoder_only=True),
+                                "prefill_32k", batch=2, seq=8) == {
+        "tokens": ((2, 8, 3584), torch.bfloat16)}
+    with pytest.raises(NotImplementedError, match="A3"):
+        tconfigs.input_specs(dataclasses.replace(cfg, family="vlm"),
                              "prefill_32k")
 
 
