@@ -83,24 +83,29 @@ bf16, seeded random weights made on the card):
   time by kernel, device idle share);
 * decode-equals-prefill in float32 at full width and 4 layers.
 
-Then the dense and MoE configs (``phase_lm_zoo``), each at full width and
-depth, bf16, seeded weights on the card, one model resident at a time:
+Then the other configs (``phase_lm_zoo``), each at full width and depth,
+bf16, seeded weights on the card, one model resident at a time:
 stablelm-1.6b (head dim 64), codeqwen1.5-7b (128), hubert-xlarge (an
 encoder on seeded frame embeddings, head dim 80), deepseek-moe-16b and
 moonshot-v1-16b-a3b (a dense first layer, then MoE layers of 64 experts,
-top 6; head dim 128):
+top 6; head dim 128), minicpm3-4b (62 MLA layers: latent q and kv, plain
+ops, no kernel) and llama-3.2-vision-11b (32 GQA layers of Hq 32 / Hkv 8
+at D 128 and 8 gated cross-attention layers over a seeded image context of
+1600 patch embeddings; the gates, zero at init, set to 0.5):
 
 * prefill of 2 x 8192 tokens (prefill_32k cut to S 8192, batch 2), a
-  warm-up and 3 timed, every one the same bits, each attention layer's
-  launch on the tensor-core kernel; the MoE configs' share of assignments
-  dropped at capacity;
-* 16 decode steps of the four decoders at batch 2 on 8192 cache slots
+  warm-up and 3 timed, every one the same bits, each GQA layer's launch
+  on the tensor-core kernel (none for MLA and cross-attention layers);
+  the MoE configs' share of assignments dropped at capacity;
+* 16 decode steps of the six decoders at batch 2 on 8192 cache slots
   (decode_32k cut from 32768 slots and batch 128); hubert's serve step is
   refused (no decode step);
-* ``flash_attention`` timed at hubert's D 80 shape;
-* a torch.profiler window over one prefill and 3 decode steps of each MoE
-  config (device time by kernel, idle share);
-* decode-equals-prefill in float32 at 4 layers of each decoder's widths.
+* ``flash_attention`` timed at hubert's D 80 shape and at llama-vision's
+  GQA-4 D 128 shape;
+* a torch.profiler window over one prefill and 3 decode steps of each MoE,
+  MLA and VLM config (device time by kernel, idle share);
+* decode-equals-prefill in float32 at 4 layers of each decoder's widths
+  (llama-vision: 5, its whole pattern).
 
 Each path is run with the kernel counters set to 0 just before it and read
 just after, and must have launched the kernels it runs (and called none of
@@ -1908,58 +1913,63 @@ def phase_fleet(n: int, ds, solos, rel_single, smi):
 
 def phase_flash_checks():
     """flash_attention against its plain version on the card: S 1000 (no
-    tile divides it), head dims 64, 80, 128 and 256, Hq/Hkv 1, 2 and 8, causal
-    and not, windows 64 and 4096, soft-cap none and 50, float32 and
-    bfloat16; repeat launches bit-identical.  At D 256, Hq/Hkv 8 in
-    bfloat16, the plain version with the window, the causal mask or the
-    cap dropped must fall outside the band."""
+    tile divides it), head dims 64, 80, 128 and 256, Hq/Hkv 1, 2 and 8, and
+    at D 128 also llama-3.2-vision's 32/8 (a group of 4), causal and not,
+    windows 64 and 4096, soft-cap none and 50, float32 and bfloat16; repeat
+    launches bit-identical.  At D 256, Hq/Hkv 8 in bfloat16, the plain
+    version with the window, the causal mask or the cap dropped must fall
+    outside the band."""
     import torch
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                      flash_attention_plain)
     s = 1000
     heads = ((4, 4), (8, 4), (16, 2))
+    cases = [(d, hq, hkv) for d in FLASH_DIMS for hq, hkv in heads]
+    cases.append((128, 32, 8))
     masks = ((True, None, None), (False, None, None), (True, 64, 50.0),
              (False, 64, None), (True, 4096, 50.0), (False, 4096, 50.0))
-    log(f"== flash_attention checks at S={s}, D 64/80/128/256, Hq/Hkv 1/2/8, "
-        f"{len(masks)} mask and cap settings, float32 and bfloat16")
+    log(f"== flash_attention checks at S={s}, D 64/80/128/256, Hq/Hkv 1/2/8 "
+        f"(and 32/8 at D 128), {len(masks)} mask and cap settings, float32 "
+        "and bfloat16")
     from repro_torch import kernels
     gen = torch.Generator(device="cuda").manual_seed(4)
     worst = {}
     kernels.reset_counters()
     for dtype in (torch.float32, torch.bfloat16):
         rtol, atol = FLASH_TOL[str(dtype).split(".")[1]]
-        for d in FLASH_DIMS:
-            for hq, hkv in heads:
-                q, k, v = ((torch.randn((2, h, s, d), generator=gen,
-                                        device="cuda") * c).to(dtype)
-                           for h, c in ((hq, FLASH_Q_SCALE), (hkv, 1.0),
-                                        (hkv, 1.0)))
-                for causal, window, cap in masks:
-                    got = flash_attention_cuda(q, k, v, causal, window, cap)
-                    want = flash_attention_plain(q, k, v, causal, window, cap)
-                    err = (got.float() - want.float()).abs()
-                    tag = (f"{dtype} D={d} Hq/Hkv={hq}/{hkv} causal={causal} "
-                           f"window={window} softcap={cap}")
-                    n_bad = outside_band(got, want, rtol, atol)
-                    if n_bad:
-                        raise AssertionError(
-                            f"flash_attention {tag}: {n_bad} elements "
-                            f"outside rtol={rtol} atol={atol} (max |err| "
-                            f"{float(err.max()):.3g})")
-                    if dtype == torch.bfloat16 and d == 256 and hq == 16:
-                        for what, wrong in _dropped(causal, window, cap, s):
-                            check_separates(
-                                f"flash_attention {tag}", want,
-                                flash_attention_plain(q, k, v, *wrong),
-                                rtol, atol, what)
-                    if not torch.equal(got, flash_attention_cuda(
-                            q, k, v, causal, window, cap)):
-                        raise AssertionError(f"flash_attention {tag}: repeat "
-                                             "launch differs")
-                    worst[dtype] = max(worst.get(dtype, 0.0),
-                                       float(err.max()))
+        for d, hq, hkv in cases:
+            q, k, v = ((torch.randn((2, h, s, d), generator=gen,
+                                    device="cuda") * c).to(dtype)
+                       for h, c in ((hq, FLASH_Q_SCALE), (hkv, 1.0),
+                                    (hkv, 1.0)))
+            for causal, window, cap in masks:
+                got = flash_attention_cuda(q, k, v, causal, window, cap)
+                want = flash_attention_plain(q, k, v, causal, window, cap)
+                err = (got.float() - want.float()).abs()
+                tag = (f"{dtype} D={d} Hq/Hkv={hq}/{hkv} causal={causal} "
+                       f"window={window} softcap={cap}")
+                n_bad = outside_band(got, want, rtol, atol)
+                if n_bad:
+                    raise AssertionError(
+                        f"flash_attention {tag}: {n_bad} elements "
+                        f"outside rtol={rtol} atol={atol} (max |err| "
+                        f"{float(err.max()):.3g})")
+                if dtype == torch.bfloat16 and d == 256 and hq == 16:
+                    for what, wrong in _dropped(causal, window, cap, s):
+                        check_separates(
+                            f"flash_attention {tag}", want,
+                            flash_attention_plain(q, k, v, *wrong),
+                            rtol, atol, what)
+                if not torch.equal(got, flash_attention_cuda(
+                        q, k, v, causal, window, cap)):
+                    raise AssertionError(f"flash_attention {tag}: repeat "
+                                         "launch differs")
+                worst[dtype] = max(worst.get(dtype, 0.0), float(err.max()))
+                if hq == 32:
+                    worst[f"{dtype} GQA 4"] = max(
+                        worst.get(f"{dtype} GQA 4", 0.0), float(err.max()))
     torch.cuda.synchronize()
-    n_cases = len(FLASH_DIMS) * len(heads) * len(masks)
+    n_cases = len(cases) * len(masks)
     paths = flash_paths()
     if paths != {"wgmma": 2 * n_cases, "simt": 2 * n_cases}:
         raise AssertionError(f"flash_attention paths {paths}: bfloat16 must "
@@ -2002,6 +2012,31 @@ def _lm_inputs(cfg, seed: int, batch: int, seq: int):
     return _lm_tokens(seed, batch, seq, cfg.vocab)
 
 
+def _lm_ctx(cfg, seed: int, batch: int):
+    """A VLM's image context (the stub vision tower's patch embeddings):
+    seeded N(0, 1) of (batch, n_ctx_tokens, d_model) in the model's type
+    on the card; None for a model without cross-attention."""
+    import torch
+    if "xattn" not in cfg.layer_kinds:
+        return None
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1000)
+    return torch.randn((batch, cfg.n_ctx_tokens, cfg.d_model), generator=gen,
+                       device="cuda").to(cfg.dtype)
+
+
+#: the cross-attention gates' value in the LM runs: the reference
+#: zero-initialises them, and tanh(0) = 0 would multiply every
+#: cross-attention layer away
+XATTN_GATE = 0.5
+
+
+def _gqa_layers(cfg) -> int:
+    """Layers that attend by GQA: flash_attention's launches per prefill
+    (MLA and cross-attention run in plain ops, as the reference's)."""
+    from repro_torch.models.lm import ATTN_KINDS
+    return sum(kind in ATTN_KINDS for kind in cfg.layer_kinds)
+
+
 def phase_lm_build(name: str, seed: int, smi):
     """Config ``name`` at full width and depth, bf16, weights drawn on the
     card from ``seed``."""
@@ -2014,23 +2049,33 @@ def phase_lm_build(name: str, seed: int, smi):
         f"{cfg.n_heads}/{cfg.n_kv} heads of {cfg.hd}, d_ff {cfg.d_ff}"
         + (f", {cfg.n_experts} experts top-{cfg.top_k} of {cfg.d_expert} "
            f"(+{cfg.n_shared} shared)" if cfg.n_experts else "")
+        + (f", MLA q_lora {cfg.q_lora_rank} kv_lora {cfg.kv_lora_rank} "
+           f"nope/rope/v {cfg.qk_nope_dim}/{cfg.qk_rope_dim}/"
+           f"{cfg.v_head_dim}" if "mla" in cfg.layer_kinds else "")
+        + (f", {cfg.layer_kinds.count('xattn')} cross-attention layers over "
+           f"{cfg.n_ctx_tokens} patch embeddings"
+           if "xattn" in cfg.layer_kinds else "")
         + f", vocab {cfg.vocab}, {cfg.dtype}")
     gen = torch.Generator(device="cuda").manual_seed(seed)
     torch.cuda.reset_peak_memory_stats()
     ms, model = once_ms(lambda: LM(cfg, device="cuda", generator=gen))
     n = sum(p.numel() for p in model.parameters())
+    gates = model.set_xattn_gates(XATTN_GATE)
     log(f"  {n / 1e9:.3f} B parameters, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card, drawn "
-        f"in {ms / 1e3:.1f} s")
+        f"in {ms / 1e3:.1f} s"
+        + (f"; {gates} cross-attention gates set to {XATTN_GATE} (zero at "
+           "init)" if gates else ""))
     return model
 
 
-def phase_prefill(model, inputs, reps: int = 3):
+def phase_prefill(model, inputs, reps: int = 3, ctx=None):
     """The main path: build_prefill_step on B x S prompts (token ids, or
-    an audio model's frame embeddings).  A warm-up forward (which also
-    counts the MoE drops) and ``reps`` timed prefills, each ending in a
-    sync, every one's logits the same bits; every attention layer's
-    launch on the tensor-core kernel, no plain call."""
+    an audio model's frame embeddings; a VLM's image context ``ctx``).  A
+    warm-up forward (which also counts the MoE drops) and ``reps`` timed
+    prefills, each ending in a sync, every one's logits the same bits;
+    every GQA layer's launch on the tensor-core kernel (MLA and
+    cross-attention layers launch none), no plain call."""
     import torch
     from repro_torch import kernels
     from repro_torch.launch.steps import build_prefill_step
@@ -2040,18 +2085,20 @@ def phase_prefill(model, inputs, reps: int = 3):
                               model=model)
     want_spec = (tuple(inputs.shape), inputs.dtype if cfg.family == "audio"
                  else torch.int32)
-    if step.in_specs["tokens"] != want_spec:
+    if step.in_specs["tokens"] != want_spec or step.in_specs.get("ctx") != (
+            None if ctx is None else (tuple(ctx.shape), ctx.dtype)):
         raise AssertionError(f"input spec {step.in_specs} for {want_spec}")
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_counters()
     stats = {}
     with torch.inference_mode():
-        warm_ms, hidden = once_ms(lambda: model(inputs, moe_stats=stats))
+        warm_ms, hidden = once_ms(lambda: model(inputs, ctx,
+                                                moe_stats=stats))
         first = model.logits(hidden[:, -1:])
         del hidden
     times = []
     for _ in range(reps):
-        ms, logits = once_ms(lambda: step.fn(inputs))
+        ms, logits = once_ms(lambda: step.fn(inputs, ctx))
         times.append(ms)
         if not torch.equal(logits, first):
             raise AssertionError(f"{cfg.name}: a repeat prefill differs")
@@ -2059,9 +2106,10 @@ def phase_prefill(model, inputs, reps: int = 3):
     paths = flash_paths()
     med = statistics.median(times)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    check_counts(counts, "prefill", f"{cfg.name} prefill")
-    want = cfg.n_layers * (reps + 1)
-    if counts["flash_attention"]["launches"] != want or \
+    want = _gqa_layers(cfg) * (reps + 1)
+    if want:
+        check_counts(counts, "prefill", f"{cfg.name} prefill")
+    if counts["flash_attention"] != {"launches": want, "plain_calls": 0} or \
             paths != {"wgmma": want, "simt": 0}:
         raise AssertionError(f"{cfg.name}: {counts['flash_attention']}, by "
                              f"path {paths}; expected {want}, all on the "
@@ -2076,7 +2124,8 @@ def phase_prefill(model, inputs, reps: int = 3):
         f"{[round(t, 1) for t in times]} (median {med:.1f}; warm-up forward "
         f"{warm_ms:.1f}), {b * s / med * 1e3:.0f} tokens/s, peak device "
         f"memory {peak:.2f} GiB; {reps + 1} prefills bit-identical, logits "
-        f"finite; flash launches {want} by path {paths}"
+        f"finite; flash launches {want} ({want // (reps + 1)} a prefill) by "
+        f"path {paths}"
         + ("" if drop is None else
            f"; MoE assignments dropped at capacity {int(stats['dropped'])} "
            f"of {stats['assignments']} ({100 * drop:.3f} %)"))
@@ -2084,10 +2133,11 @@ def phase_prefill(model, inputs, reps: int = 3):
                 peak_gib=peak, launches=want, drop_share=drop)
 
 
-def phase_decode(model, tokens, steps: int, slots: int):
+def phase_decode(model, tokens, steps: int, slots: int, ctx=None):
     """build_serve_step on init_cache(B, slots): ``steps`` decode steps fed
-    the prompts' first tokens at positions 0..steps-1; no kernel and no
-    plain version runs (decode attends in plain ops on the ring cache)."""
+    the prompts' first tokens at positions 0..steps-1 (a VLM's image
+    context ``ctx`` at every step); no kernel and no plain version runs
+    (decode attends in plain ops on the ring or latent cache)."""
     import torch
     from repro_torch import kernels
     from repro_torch.launch.steps import build_serve_step
@@ -2097,15 +2147,15 @@ def phase_decode(model, tokens, steps: int, slots: int):
                             model=model)
     torch.cuda.reset_peak_memory_stats()
     caches = model.init_cache(b, slots)
-    shapes = [{n: tuple(t.shape) for n, t in c.items()} for c in caches]
-    if shapes != [{n: shp for n, (shp, _) in c.items()}
+    shapes = [c and {n: tuple(t.shape) for n, t in c.items()} for c in caches]
+    if shapes != [c and {n: shp for n, (shp, _) in c.items()}
                   for c in step.in_specs["caches"]]:
         raise AssertionError("caches differ from the step's input specs")
     kernels.reset_counters()
     times = []
     for t in range(steps):
         ms, (logits, caches) = once_ms(
-            lambda: step.fn(tokens[:, t:t + 1], t, caches))
+            lambda: step.fn(tokens[:, t:t + 1], t, caches, ctx))
         times.append(ms)
         if tuple(logits.shape) != (b, 1, cfg.vocab) or not bool(
                 torch.isfinite(logits).all()):
@@ -2116,7 +2166,7 @@ def phase_decode(model, tokens, steps: int, slots: int):
         raise AssertionError(f"decode ran a kernel or plain version: {counts}")
     med = statistics.median(times)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    cache_gib = sum(t.numel() * t.element_size() for c in caches
+    cache_gib = sum(t.numel() * t.element_size() for c in caches if c
                     for t in c.values()) / 2**30
     log(f"  decode: {steps} steps at batch {b} on {slots} slots (decode_32k "
         f"cut to batch {b}): median {med:.2f} ms a step (first "
@@ -2124,19 +2174,21 @@ def phase_decode(model, tokens, steps: int, slots: int):
         f"peak device memory {peak:.2f} GiB; logits finite; counters all 0")
     del caches
     torch.cuda.empty_cache()
-    return dict(decode_ms=med, decode_peak_gib=peak)
+    return dict(decode_ms=med, decode_peak_gib=peak, cache_gib=cache_gib)
 
 
 def phase_lm_consistency(name: str, seed: int, layers: int = 4, n: int = 32,
                          at=(7, 15, 31), **overrides):
     """The reference's decode-equals-forward check (tests/test_models.py:74)
     at the config's full widths: ``layers`` layers (the MoE configs: the
-    dense prelude and layers - 1 MoE layers), float32, the ``overrides``.
-    Decoding n tokens one by one at batch 2 gives, at the positions ``at``,
-    the logits that prefill of that prefix gives (through the kernel),
-    within rtol 1e-3 / atol 1e-4.  At n <= 32 a pass holds at most 64
-    tokens, within the MoE capacity floor min(T, 64), so neither pass
-    drops an assignment."""
+    dense prelude and layers - 1 MoE layers; llama-vision: its 5-kind
+    pattern once), float32, the ``overrides``, cross-attention gates at
+    XATTN_GATE and a seeded image context.  Decoding n tokens one by one
+    at batch 2 gives, at the positions ``at``, the logits that prefill of
+    that prefix gives (through the kernel at each GQA layer; MLA's
+    absorbed decode against its expanded prefill), within rtol 1e-3 /
+    atol 1e-4.  At n <= 32 a pass holds at most 64 tokens, within the MoE
+    capacity floor min(T, 64), so neither pass drops an assignment."""
     import dataclasses
     import torch
     from repro_torch import kernels
@@ -2149,16 +2201,19 @@ def phase_lm_consistency(name: str, seed: int, layers: int = 4, n: int = 32,
                               dtype=torch.float32, **overrides)
     model = LM(cfg, device="cuda",
                generator=torch.Generator(device="cuda").manual_seed(seed))
+    model.set_xattn_gates(XATTN_GATE)
     tokens = _lm_tokens(seed + 1, 2, n, cfg.vocab)
+    ctx = _lm_ctx(cfg, seed, 2)
     worst = 0.0
     with torch.inference_mode():
         kernels.reset_counters()
-        want = {p: model.prefill(tokens[:, :p + 1]) for p in at}
+        want = {p: model.prefill(tokens[:, :p + 1], ctx) for p in at}
         counts = kernels.counters()["flash_attention"]
         paths = flash_paths()
         caches = model.init_cache(2, n)
         for t in range(n):
-            got, caches = model.decode_step(tokens[:, t:t + 1], t, caches)
+            got, caches = model.decode_step(tokens[:, t:t + 1], t, caches,
+                                            ctx)
             if t in want:
                 err = (got - want[t]).abs()
                 bad = err > LM_ATOL + LM_RTOL * want[t].abs()
@@ -2168,13 +2223,14 @@ def phase_lm_consistency(name: str, seed: int, layers: int = 4, n: int = 32,
                         f"outside rtol={LM_RTOL} atol={LM_ATOL} (max |err| "
                         f"{float(err.max()):.3g})")
                 worst = max(worst, float(err.max()))
-    if counts != {"launches": layers * len(at), "plain_calls": 0} or \
-            paths != {"wgmma": 0, "simt": layers * len(at)}:
+    n_flash = _gqa_layers(cfg) * len(at)
+    if counts != {"launches": n_flash, "plain_calls": 0} or \
+            paths != {"wgmma": 0, "simt": n_flash}:
         raise AssertionError(f"{name}: prefills ran {counts}, by path {paths}")
     log(f"  {name} {list(cfg.layer_kinds)}{overrides or ''}, {n} tokens, "
         f"positions {list(at)}: max |err| {worst:.3g}; prefills {counts}, by "
         f"path {paths}")
-    del model, caches
+    del model, caches, ctx
     torch.cuda.empty_cache()
     return worst
 
@@ -2203,10 +2259,11 @@ def _device_report(prof, wall_ms: float, what: str, top: int = 12) -> None:
             f"{name[:110]}")
 
 
-def phase_lm_profile(model, inputs, slots: int, steps: int = 3):
-    """torch.profiler over one prefill of ``inputs`` and ``steps`` decode
-    steps on ``slots`` cache slots (after a warm-up of each): where the
-    device time goes and how much of the wall time the device idles."""
+def phase_lm_profile(model, inputs, slots: int, steps: int = 3, ctx=None):
+    """torch.profiler over one prefill of ``inputs`` (with a VLM's
+    ``ctx``) and ``steps`` decode steps on ``slots`` cache slots (after a
+    warm-up of each): where the device time goes and how much of the wall
+    time the device idles."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     b, s = inputs.shape[:2]
@@ -2215,26 +2272,36 @@ def phase_lm_profile(model, inputs, slots: int, steps: int = 3):
         "CPU + CUDA)")
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with torch.inference_mode():
-        model.prefill(inputs)
+        model.prefill(inputs, ctx)
         torch.cuda.synchronize()
         with profile(activities=acts) as prof:
-            ms, _ = once_ms(lambda: model.prefill(inputs))
+            ms, _ = once_ms(lambda: model.prefill(inputs, ctx))
         _device_report(prof, ms, "prefill")
         caches = model.init_cache(b, slots)
-        model.decode_step(inputs[:, :1], 0, caches)
+        model.decode_step(inputs[:, :1], 0, caches, ctx)
         torch.cuda.synchronize()
         with profile(activities=acts) as prof:
             ms, _ = once_ms(lambda: [
-                model.decode_step(inputs[:, t:t + 1], t, caches)
+                model.decode_step(inputs[:, t:t + 1], t, caches, ctx)
                 for t in range(1, steps + 1)])
         _device_report(prof, ms, f"{steps} decode steps")
     del caches
     torch.cuda.empty_cache()
 
 
-#: the dense and MoE configs of the zoo, run after gemma2-9b, one at a time
+#: the configs of the zoo, run after gemma2-9b, one at a time: dense, MoE,
+#: MLA (minicpm3) and VLM (llama-vision)
 ZOO = ("stablelm-1.6b", "codeqwen1.5-7b", "hubert-xlarge",
-       "deepseek-moe-16b", "moonshot-v1-16b-a3b")
+       "deepseek-moe-16b", "moonshot-v1-16b-a3b", "minicpm3-4b",
+       "llama-3.2-vision-11b")
+#: layers of each decoder's decode-vs-prefill check: 4, and llama-vision's
+#: whole 5-kind pattern (4 GQA layers and a cross-attention layer)
+ZOO_CHECK_LAYERS = {"llama-3.2-vision-11b": 5}
+#: flash_attention timed at layer 0 of these configs, under these tags on
+#: the kernels line: hubert's D 80 (non-causal) and llama-vision's GQA 4
+#: (Hq 32, Hkv 8) at D 128
+ZOO_FLASH_SHAPES = {"hubert-xlarge": "hubert_d80",
+                    "llama-3.2-vision-11b": "llama_vision_gqa4_d128"}
 #: their cuts: prefill_32k at S 8192 (batch 2 of 32); decode_32k at batch 2
 #: (of 128) on 8192 cache slots (of 32768: moonshot's 25.8 GB cache would
 #: not fit beside its 50.7 GB of weights), 16 steps
@@ -2242,27 +2309,30 @@ ZOO_SEQ, ZOO_SLOTS, ZOO_STEPS = 8192, 8192, 16
 
 
 def phase_lm_zoo(seed: int, smi, reps: int = 3):
-    """The dense and MoE configs at full width and depth, bf16, weights
-    seeded on the card, one model resident at a time: prefill of 2 x 8192
-    tokens (hubert: seeded frame embeddings) through build_prefill_step,
-    16 decode steps of the decoders through build_serve_step, hubert's
-    serve step refused; flash_attention timed at hubert's D 80 shape; a
-    profiled prefill and 3 decode steps of each MoE config; then decode vs
-    prefill at 4 layers of each decoder's widths in float32.  Returns
-    (flash launches of the prefills, hubert's D 80 timing, the per-config
-    numbers)."""
+    """The zoo's configs at full width and depth, bf16, weights seeded on
+    the card (cross-attention gates at XATTN_GATE), one model resident at
+    a time: prefill of 2 x 8192 tokens (hubert: seeded frame embeddings;
+    llama-vision: a seeded image context of 1600 patch embeddings) through
+    build_prefill_step, 16 decode steps of the decoders through
+    build_serve_step, hubert's serve step refused; flash_attention timed
+    at hubert's D 80 shape and at llama-vision's GQA-4 D 128 shape; a
+    profiled prefill and 3 decode steps of each MoE, MLA and VLM config;
+    then decode vs prefill at 4 layers of each decoder's widths (5 for
+    llama-vision) in float32.  Returns (flash launches of the prefills,
+    {tag: timing} of the flash shapes, the per-config numbers)."""
     import torch
     from repro_torch.launch.steps import build_serve_step
     t0 = time.perf_counter()
     log(f"== LM zoo: {', '.join(ZOO)}; cuts: prefill_32k at S {ZOO_SEQ} "
         f"and batch 2 (of 32768 x 32), decode_32k at batch 2 (of 128) on "
         f"{ZOO_SLOTS} cache slots (of 32768), {ZOO_STEPS} steps")
-    results, d80, launches = {}, None, 0
+    results, shapes, launches = {}, {}, 0
     for name in ZOO:
         model = phase_lm_build(name, seed, smi)
         cfg = model.cfg
         inputs = _lm_inputs(cfg, seed + 1, 2, ZOO_SEQ)
-        res = phase_prefill(model, inputs, reps)
+        ctx = _lm_ctx(cfg, seed, 2)
+        res = phase_prefill(model, inputs, reps, ctx=ctx)
         launches += res["launches"]
         if cfg.encoder_only:
             try:
@@ -2271,25 +2341,28 @@ def phase_lm_zoo(seed: int, smi, reps: int = 3):
                 log(f"  decode: refused ({e})")
             else:
                 raise AssertionError(f"{name}: an encoder got a serve step")
-            q, k, v = _layer_qkv(model, inputs, 0)
-            d80 = _flash_case(f"flash_attention {name} layer 0", q, k, v,
-                              cfg.attn_cfg(cfg.layer_kinds[0]))
-            del q, k, v
         else:
-            res.update(phase_decode(model, inputs, ZOO_STEPS, ZOO_SLOTS))
-        if cfg.family == "moe":
-            phase_lm_profile(model, inputs, ZOO_SLOTS)
+            res.update(phase_decode(model, inputs, ZOO_STEPS, ZOO_SLOTS,
+                                    ctx=ctx))
+        if name in ZOO_FLASH_SHAPES:
+            q, k, v = _layer_qkv(model, inputs, 0)
+            shapes[ZOO_FLASH_SHAPES[name]] = _flash_case(
+                f"flash_attention {name} layer 0", q, k, v,
+                cfg.attn_cfg(cfg.layer_kinds[0]))
+            del q, k, v
+        if cfg.family in ("moe", "vlm") or "mla" in cfg.layer_kinds:
+            phase_lm_profile(model, inputs, ZOO_SLOTS, ctx=ctx)
         results[name] = res
-        del model, inputs
+        del model, inputs, ctx
         torch.cuda.empty_cache()
-    log(f"== decode vs prefill at full widths, 4 layers, float32 (rtol "
-        f"{LM_RTOL}, atol {LM_ATOL})")
+    log(f"== decode vs prefill at full widths, 4 layers (llama-vision 5), "
+        f"float32 (rtol {LM_RTOL}, atol {LM_ATOL})")
     for name in ZOO:
         if name != "hubert-xlarge":
-            results[name]["consistency_err"] = phase_lm_consistency(name,
-                                                                    seed)
+            results[name]["consistency_err"] = phase_lm_consistency(
+                name, seed, layers=ZOO_CHECK_LAYERS.get(name, 4))
     log(f"  LM zoo phase {time.perf_counter() - t0:.1f} s")
-    return launches, d80, results
+    return launches, shapes, results
 
 
 def _unmasked_pairs(s: int, causal: bool, window):
@@ -2981,9 +3054,10 @@ def main(argv=None) -> int:
         f"window 32 (rtol {LM_RTOL}, atol {LM_ATOL})")
     phase_lm_consistency("gemma2-9b", args.seed, n=96, at=(31, 32, 63, 95),
                          window=32)
-    zoo_launches, d80, _ = phase_lm_zoo(args.seed, smi)
+    zoo_launches, zoo_shapes, _ = phase_lm_zoo(args.seed, smi)
     flash_row["launches"] += zoo_launches
-    _add_flash_shape(flash_row, "hubert_d80", d80)
+    for tag, timing in zoo_shapes.items():
+        _add_flash_shape(flash_row, tag, timing)
     log(f"  flash_attention launches on the main paths: "
         f"{flash_row['launches']} (gemma2-9b {gemma_launches}, the zoo "
         f"{zoo_launches})")

@@ -3,11 +3,12 @@
 Port of ``repro/configs``.  ``get_config(name)`` returns the full published
 config, ``reduced(name)`` a small config of the same family for CPU tests,
 ``input_specs(cfg, shape)`` the concrete shape and dtype of every input of
-a (arch x shape) cell.  Six of the reference's ten architectures are
+a (arch x shape) cell.  Eight of the reference's ten architectures are
 registered: gemma2-9b, the dense stablelm-1.6b and codeqwen1.5-7b, the
-encoder hubert-xlarge (frame-embedding inputs) and the MoE
-deepseek-moe-16b and moonshot-v1-16b-a3b.  The other four need blocks the
-port does not run yet (ROADMAP A3).
+encoder hubert-xlarge (frame-embedding inputs), the MoE deepseek-moe-16b
+and moonshot-v1-16b-a3b, minicpm3-4b (MLA) and llama-3.2-vision-11b
+(cross-attention over an image context).  zamba2-7b and xlstm-350m need
+blocks the port does not run yet (ROADMAP A3).
 """
 
 from __future__ import annotations
@@ -19,19 +20,21 @@ import torch
 from repro_torch.models.lm import ArchConfig, block_cache_shapes
 
 from . import (codeqwen1_5_7b, deepseek_moe_16b, gemma2_9b, hubert_xlarge,
-               moonshot_v1_16b_a3b, stablelm_1_6b)
+               llama3_2_vision_11b, minicpm3_4b, moonshot_v1_16b_a3b,
+               stablelm_1_6b)
 
 _MODULES = {
     "gemma2-9b": gemma2_9b,
     "codeqwen1.5-7b": codeqwen1_5_7b,
     "stablelm-1.6b": stablelm_1_6b,
+    "minicpm3-4b": minicpm3_4b,
     "hubert-xlarge": hubert_xlarge,
+    "llama-3.2-vision-11b": llama3_2_vision_11b,
     "moonshot-v1-16b-a3b": moonshot_v1_16b_a3b,
     "deepseek-moe-16b": deepseek_moe_16b,
 }
 #: the reference's other architectures, not registered yet
-NOT_PORTED = ("zamba2-7b", "minicpm3-4b", "llama-3.2-vision-11b",
-              "xlstm-350m")
+NOT_PORTED = ("zamba2-7b", "xlstm-350m")
 
 ARCH_NAMES = tuple(_MODULES)
 
@@ -79,14 +82,17 @@ def input_specs(cfg: ArchConfig, shape: str, batch: Optional[int] = None,
     """``(shape, dtype)`` of every input of a cell's step, the cell's
     sequence length and batch unless ``seq`` / ``batch`` cut them:
 
-    * train_*   -> {tokens, labels}
-    * prefill_* -> {tokens}
-    * decode_* / long_* -> {token, pos, caches}: ``pos`` is a Python int
-      (shape ()), ``caches`` a list of each layer's {name: (shape, dtype)}
+    * train_*   -> {tokens, labels [, ctx]}
+    * prefill_* -> {tokens [, ctx]}
+    * decode_* / long_* -> {token, pos, caches [, ctx]}: ``pos`` is a
+      Python int (shape ()), ``caches`` a list of each layer's
+      {name: (shape, dtype)} (None for a cross-attention layer)
 
     Audio and encoder-only models (hubert) take precomputed frame
     embeddings ``(b, s, d_model)`` in the model's type for ``tokens`` and
-    ``token``, as the reference's stub frontend.
+    ``token``, as the reference's stub frontend.  A VLM (llama-vision)
+    also takes ``ctx``, the stub vision tower's patch embeddings
+    ``(b, n_ctx_tokens, d_model)`` in the model's type, in every cell.
     """
     s0, b0 = SHAPES[shape]
     seq, batch = seq or s0, batch or b0
@@ -96,14 +102,15 @@ def input_specs(cfg: ArchConfig, shape: str, batch: Optional[int] = None,
             return ((b, s, cfg.d_model), cfg.dtype)
         return ((b, s), torch.int32)
 
-    if cfg.family == "vlm":
-        raise NotImplementedError("cross-attention inputs are not ported "
-                                  "yet (ROADMAP A3)")
     if shape.startswith("train"):
-        return {"tokens": tok(batch, seq), "labels": ((batch, seq),
-                                                      torch.int32)}
-    if shape.startswith("prefill"):
-        return {"tokens": tok(batch, seq)}
-    return {"token": tok(batch, 1), "pos": ((), torch.int32),
-            "caches": [block_cache_shapes(kind, cfg, batch, seq)
-                       for kind in cfg.layer_kinds]}
+        specs = {"tokens": tok(batch, seq),
+                 "labels": ((batch, seq), torch.int32)}
+    elif shape.startswith("prefill"):
+        specs = {"tokens": tok(batch, seq)}
+    else:
+        specs = {"token": tok(batch, 1), "pos": ((), torch.int32),
+                 "caches": [block_cache_shapes(kind, cfg, batch, seq)
+                            for kind in cfg.layer_kinds]}
+    if cfg.family == "vlm":
+        specs["ctx"] = ((batch, cfg.n_ctx_tokens, cfg.d_model), cfg.dtype)
+    return specs

@@ -10,7 +10,9 @@ training builder is not ported yet (ROADMAP A3).
     logits = step.fn(tokens)                             # (B, 1, V) float32
 
 ``tokens`` are token ids (B, S), or frame embeddings (B, S, d_model) for an
-audio model (hubert-xlarge), as ``step.in_specs["tokens"]`` says.
+audio model (hubert-xlarge), as ``step.in_specs["tokens"]`` says.  A VLM
+(llama-3.2-vision-11b) also takes the image context, ``fn(tokens, ctx)``
+and ``fn(token, pos, caches, ctx)``, of ``step.in_specs["ctx"]``.
 
 The builders run on the current CUDA device unless ``device="cpu"`` is
 passed, and raise when there is none.
@@ -51,16 +53,19 @@ def build_prefill_step(cfg: ArchConfig, shape: str = "prefill_32k", *,
                        batch: Optional[int] = None, seq: Optional[int] = None,
                        model: Optional[LM] = None, device: DeviceLike = None,
                        seed: int = 0) -> BuiltStep:
-    """``fn(tokens) -> logits``: last-position float32 logits (B, 1, V) of
-    the prompts (B, S), or of frame embeddings (B, S, d_model) for an audio
-    model.  ``batch`` / ``seq`` cut the cell's shape; the model is
-    ``model``, or a new one with weights drawn from ``seed``."""
+    """``fn(tokens, ctx=None) -> logits``: last-position float32 logits
+    (B, 1, V) of the prompts (B, S), or of frame embeddings (B, S, d_model)
+    for an audio model; ``ctx``, the image context (B, n_ctx_tokens,
+    d_model), is required by a VLM.  ``batch`` / ``seq`` cut the cell's
+    shape; the model is ``model``, or a new one with weights drawn from
+    ``seed``."""
     lm = _model(cfg, model, device, seed)
     specs = input_specs(cfg, shape, batch=batch, seq=seq)
 
     @torch.inference_mode()
-    def prefill(tokens: torch.Tensor) -> torch.Tensor:
-        return lm.prefill(tokens)
+    def prefill(tokens: torch.Tensor,
+                ctx: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return lm.prefill(tokens, ctx)
 
     return BuiltStep(prefill, specs, lm)
 
@@ -69,11 +74,12 @@ def build_serve_step(cfg: ArchConfig, shape: str = "decode_32k", *,
                      batch: Optional[int] = None, seq: Optional[int] = None,
                      model: Optional[LM] = None, device: DeviceLike = None,
                      seed: int = 0) -> BuiltStep:
-    """``fn(token, pos, caches) -> (logits, caches)``: one decode step of
-    tokens (B, 1) at position ``pos`` on caches from
+    """``fn(token, pos, caches, ctx=None) -> (logits, caches)``: one
+    decode step of tokens (B, 1) at position ``pos`` on caches from
     ``model.init_cache(batch, seq)``, updated in place (the reference
-    donates them).  An encoder-only config has no decode step: it raises
-    with the cell's skip reason."""
+    donates them); a VLM takes its image context ``ctx`` at every step.
+    An encoder-only config has no decode step: it raises with the cell's
+    skip reason."""
     reason = cell_skip_reason(cfg, shape) if cfg.encoder_only else None
     if reason is not None:
         raise ValueError(f"{cfg.name}, {shape}: {reason}")
@@ -81,7 +87,8 @@ def build_serve_step(cfg: ArchConfig, shape: str = "decode_32k", *,
     specs = input_specs(cfg, shape, batch=batch, seq=seq)
 
     @torch.inference_mode()
-    def serve_step(token: torch.Tensor, pos: int, caches):
-        return lm.decode_step(token, pos, caches)
+    def serve_step(token: torch.Tensor, pos: int, caches,
+                   ctx: Optional[torch.Tensor] = None):
+        return lm.decode_step(token, pos, caches, ctx)
 
     return BuiltStep(serve_step, specs, lm)

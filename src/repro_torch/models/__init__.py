@@ -1,8 +1,11 @@
-"""The LM side of the port: attention and MoE blocks on one device.
+"""The LM side of the port: attention, MLA, cross-attention and MoE blocks
+on one device.
 
 * :mod:`.common` — norms, rotary embedding, init;
 * :mod:`.attention` — grouped-query attention (prefill on the
-  ``flash_attention`` kernel, decode on a ring cache);
+  ``flash_attention`` kernel, decode on a ring cache), MLA (prefill in
+  the expanded form, decode in the weight-absorbed form on the latent
+  cache) and gated cross-attention, both in plain ops as the reference;
 * :mod:`.ffn` — gated and plain MLPs;
 * :mod:`.moe` — the mixture-of-experts FFN (top-k routing with a capacity
   per expert, shared experts, the load-balance loss);
@@ -10,7 +13,7 @@
 * :mod:`.lm` — ``ArchConfig``, the blocks, the ``LM`` module and
   ``load_reference_params``.
 
-MLA, Mamba2, xLSTM and cross-attention are not ported yet (ROADMAP A3).
+Mamba2 and xLSTM are not ported yet (ROADMAP A3).
 """
 
 from . import moe  # noqa: F401

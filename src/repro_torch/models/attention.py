@@ -1,14 +1,14 @@
-"""Grouped-query attention (sliding window, soft-cap, QK-norm): init, the
-full-sequence pass of prefill and the one-token decode on a ring cache.
+"""Attention variants on one device: grouped-query attention (sliding
+window, soft-cap, QK-norm), MLA (minicpm3's latent KV) and gated
+cross-attention (llama-3.2-vision's image layers).  Each has an init, a
+full-sequence pass (prefill) and a one-token decode (cross-attention has no
+cache: it re-projects the image context every step, as the reference).
 
-Port of the GQA half of ``repro/models/attention.py`` for one device.  MLA
-and cross-attention are not ported yet (ROADMAP A3).
-
-The reference picks its full-sequence attention with
-``AttnConfig.use_flash``: the Pallas kernel when set, else ``_sdpa``, a
-chunked jnp attention kept so that GSPMD owns the sharding on the TPU.  The
-port keeps the field for config parity but dispatches by device, as its
-other kernels do: :func:`gqa_fwd` calls
+Port of ``repro/models/attention.py``.  The reference picks its GQA
+full-sequence attention with ``AttnConfig.use_flash``: the Pallas kernel
+when set, else ``_sdpa``, a chunked jnp attention kept so that GSPMD owns
+the sharding on the TPU.  The port keeps the field for config parity but
+dispatches by device, as its other kernels do: :func:`gqa_fwd` calls
 :func:`repro_torch.kernels.ops.flash_attention` (the cached wrapper of
 :func:`repro_torch.kernels.flash_attention.flash_attention`), which launches
 the CUDA kernel on a CUDA tensor and runs the kernel's plain version (a
@@ -16,6 +16,15 @@ chunked dense softmax, the port's ``_sdpa``) on a CPU tensor.  Both
 reference paths compute that function within the reference's tolerances
 (``tests/test_kernels.py:74-111``), and the CPU tests hold the port against
 both.
+
+MLA and cross-attention run in plain ops on every device, because the
+reference computes them in plain jnp ops and never reaches a Pallas kernel:
+:func:`mla_fwd` is the reference's expanded causal attention over query
+chunks, :func:`mla_decode` its weight-absorbed form on the latent cache,
+and :func:`cross_fwd` calls :func:`_sdpa`, the counterpart of the
+reference's ``_sdpa`` (non-causal, Sq != Skv).  The reference's
+``MLAConfig.seq_parallel`` only chooses a sharding, so the port's
+``MLAConfig`` leaves it out (one device).
 """
 
 from __future__ import annotations
@@ -134,3 +143,207 @@ def gqa_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     o = torch.matmul(pattn.to(v.dtype).float(), v.float())  # (B, Hkv, G, D)
     o = o.reshape(b, 1, h * hd).to(x.dtype)
     return o @ p["wo"], cache
+
+
+# --------------------------------------------------------------------------
+# MLA -- multi-head latent attention (MiniCPM3 / DeepSeek-V2 style)
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    d_model: int
+    n_heads: int
+    q_lora_rank: int = 768
+    kv_lora_rank: int = 256
+    qk_nope_dim: int = 64
+    qk_rope_dim: int = 32
+    v_head_dim: int = 64
+    rope_theta: float = 10000.0
+
+
+#: query rows per chunk of :func:`mla_fwd` and :func:`_sdpa` (the
+#: reference's)
+_Q_CHUNK = 1024
+
+
+def init_mla(gen: Optional[torch.Generator], cfg: MLAConfig,
+             dtype=torch.bfloat16, device=None) -> Params:
+    h = cfg.n_heads
+    qd = cfg.qk_nope_dim + cfg.qk_rope_dim
+    p = {"wq_a": dense_init(gen, (cfg.d_model, cfg.q_lora_rank), 0, dtype,
+                            device)}
+    p["q_a_scale"] = torch.zeros((cfg.q_lora_rank,), dtype=dtype,
+                                 device=device)
+    p["wq_b"] = dense_init(gen, (cfg.q_lora_rank, h * qd), 0, dtype, device)
+    p["wkv_a"] = dense_init(gen, (cfg.d_model,
+                                  cfg.kv_lora_rank + cfg.qk_rope_dim), 0,
+                            dtype, device)
+    p["kv_a_scale"] = torch.zeros((cfg.kv_lora_rank,), dtype=dtype,
+                                  device=device)
+    p["wkv_b"] = dense_init(gen, (cfg.kv_lora_rank,
+                                  h * (cfg.qk_nope_dim + cfg.v_head_dim)), 0,
+                            dtype, device)
+    p["wo"] = dense_init(gen, (h * cfg.v_head_dim, cfg.d_model), 0, dtype,
+                         device)
+    return p
+
+
+def _mla_project(p, x: torch.Tensor, cfg: MLAConfig,
+                 positions: torch.Tensor):
+    """q_nope (B, S, H, nope), q_rope (B, S, H, rope) rotated, the normed
+    kv latent (B, S, rank) and k_rope (B, S, rope) rotated, shared by every
+    head."""
+    b, s, _ = x.shape
+    nope, rope = cfg.qk_nope_dim, cfg.qk_rope_dim
+    q_lat = rms_norm(x @ p["wq_a"], p["q_a_scale"])
+    q = (q_lat @ p["wq_b"]).view(b, s, cfg.n_heads, nope + rope)
+    q_nope, q_rope = q.split([nope, rope], dim=-1)
+    q_rope = apply_rope(q_rope.transpose(1, 2), positions,
+                        cfg.rope_theta).transpose(1, 2)
+    kv_lat, k_rope = (x @ p["wkv_a"]).split([cfg.kv_lora_rank, rope], dim=-1)
+    kv_lat = rms_norm(kv_lat, p["kv_a_scale"])
+    k_rope = apply_rope(k_rope[:, None], positions, cfg.rope_theta)[:, 0]
+    return q_nope, q_rope, kv_lat, k_rope
+
+
+def mla_fwd(p, x: torch.Tensor, cfg: MLAConfig,
+            positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """MLA full-sequence pass, the reference's expanded form: the latent
+    expanded to per-head K (nope part, plus the shared rope part) and V,
+    then causal attention in float32 over query chunks of 1024 rows, each
+    chunk multiplying only the key columns up to its last row.  As in the
+    reference, q is widened to float32 before it is scaled by
+    1/sqrt(nope + rope).  x: (B, S, d_model) -> (B, S, d_model).  (The
+    reference can also return the latent as a cache; the port's prefill
+    returns none, as the reference's serving path.)"""
+    b, s, _ = x.shape
+    h, nope, rope = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    if positions is None:
+        positions = torch.arange(s, device=x.device)
+    q_nope, q_rope, kv_lat, k_rope = _mla_project(p, x, cfg, positions)
+    kv = (kv_lat @ p["wkv_b"]).view(b, s, h, nope + cfg.v_head_dim)
+    k_nope, v = kv.split([nope, cfg.v_head_dim], dim=-1)
+    qf = torch.cat([q_nope, q_rope], dim=-1).transpose(1, 2)  # (B,H,S,Dq)
+    kf = torch.cat([k_nope, k_rope[:, :, None].expand(b, s, h, rope)],
+                   dim=-1).transpose(1, 2).float()
+    vf = v.transpose(1, 2).float()
+    scale = 1.0 / math.sqrt(nope + rope)
+    qc = _Q_CHUNK if s > _Q_CHUNK and s % _Q_CHUNK == 0 else s
+    rows = torch.arange(s, device=x.device)
+    outs = []
+    for q0 in range(0, s, qc):
+        q1 = q0 + qc
+        k_hi = min(s, q1)                       # causal column skip
+        sc = torch.matmul(qf[:, :, q0:q1].float() * scale,
+                          kf[:, :, :k_hi].transpose(-1, -2))
+        sc.masked_fill_(rows[None, :k_hi] > rows[q0:q1, None], NEG_INF)
+        outs.append(torch.matmul(torch.softmax(sc, dim=-1),
+                                 vf[:, :, :k_hi]))
+        del sc
+    o = outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
+    o = o.transpose(1, 2).reshape(b, s, h * cfg.v_head_dim).to(x.dtype)
+    return o @ p["wo"]
+
+
+def mla_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
+               cfg: MLAConfig, pos: int):
+    """One-token decode on the latent cache, in the reference's
+    weight-absorbed form (DeepSeek-V2 App. C): ``wkv_b``'s key half is
+    folded into the query and its value half applied after attention, so
+    the step's cost is linear in the cache length with rank-sized inner
+    dimensions.  x: (B, 1, d_model); cache ``kv_lat`` (B, S_max, rank),
+    ``k_rope`` (B, S_max, rope) and ``pos`` (S_max,) int32, the position
+    held in each slot (-1 = empty); the new entries go to slot ``pos`` (no
+    ring: MLA layers are full-context).  The cache is updated in place and
+    returned.
+
+    Each of the reference's ``preferred_element_type=float32`` products
+    widens its operands, in the types the reference gives them, to float32
+    (exact: a product of two bf16 values is exact in float32), and the
+    reference's roundings stay where they are: q_abs to the cache's type
+    before the score product, the attention weights to the cache's type,
+    and the latent output to ``wkv_b``'s type."""
+    b = x.shape[0]
+    h, nope = cfg.n_heads, cfg.qk_nope_dim
+    pos = int(pos)
+    posv = torch.full((1,), pos, device=x.device)
+    q_nope, q_rope, lat_new, rope_new = _mla_project(p, x, cfg, posv)
+    kv_lat, k_rope, slot_pos = cache["kv_lat"], cache["k_rope"], cache["pos"]
+    kv_lat[:, pos] = lat_new[:, 0].to(kv_lat.dtype)
+    k_rope[:, pos] = rope_new[:, 0].to(k_rope.dtype)
+    slot_pos[pos] = pos
+    wkv = p["wkv_b"].view(cfg.kv_lora_rank, h, nope + cfg.v_head_dim)
+    wk, wv = wkv.split([nope, cfg.v_head_dim], dim=-1)
+    # (B, H, rank): q_nope (B, 1, H, nope) against wk (rank, H, nope)
+    q_abs = torch.einsum("bhd,rhd->bhr", q_nope[:, 0].float(), wk.float())
+    lat = kv_lat.float()
+    s_nope = torch.matmul(q_abs.to(kv_lat.dtype).float(),
+                          lat.transpose(1, 2))             # (B, H, S_max)
+    s_rope = torch.matmul(q_rope[:, 0].to(k_rope.dtype).float(),
+                          k_rope.float().transpose(1, 2))
+    scores = (s_nope + s_rope) * (1.0 / math.sqrt(nope + cfg.qk_rope_dim))
+    valid = (slot_pos >= 0) & (slot_pos <= pos)
+    scores = scores.masked_fill(~valid, NEG_INF)
+    attn = torch.softmax(scores, dim=-1)
+    o_lat = torch.matmul(attn.to(kv_lat.dtype).float(), lat)  # (B, H, rank)
+    o = torch.einsum("bhr,rhd->bhd", o_lat.to(wv.dtype).float(), wv.float())
+    o = o.reshape(b, 1, h * cfg.v_head_dim).to(x.dtype)
+    return o @ p["wo"], cache
+
+
+# --------------------------------------------------------------------------
+# cross-attention (llama-3.2-vision image layers; stub patch embeddings)
+# --------------------------------------------------------------------------
+
+def init_cross(gen: Optional[torch.Generator], cfg: AttnConfig,
+               dtype=torch.bfloat16, device=None) -> Params:
+    """GQA weights, per-head QK-norm scales and a 0-d tanh gate, zero as
+    the reference's (so an untrained layer adds nothing)."""
+    p = init_gqa(gen, cfg, dtype, device)
+    p["q_scale"] = torch.zeros((cfg.head_dim,), dtype=dtype, device=device)
+    p["k_scale"] = torch.zeros((cfg.head_dim,), dtype=dtype, device=device)
+    p["gate"] = torch.zeros((), dtype=dtype, device=device)
+    return p
+
+
+def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Non-causal attention of q (B, Hq, Sq, D) over k, v (B, Hkv, Skv, D),
+    any Sq and Skv, Hq a multiple of Hkv; float32 softmax over query chunks
+    of 1024 rows, the result in q's type.
+
+    The counterpart of the reference's ``_sdpa`` (``repro/models/
+    attention.py``) with no mask and no cap, the only form the reference's
+    cross-attention calls.  It mirrors that plain path; it is not a
+    fallback for the flash kernel (whose plain version, its oracle, takes
+    Sq == Skv only)."""
+    b, hq, sq, d = q.shape
+    hkv = k.shape[1]
+    kf = k.float()[:, :, None].transpose(-1, -2)     # (B, Hkv, 1, D, Skv)
+    vf = v.float()[:, :, None]
+    scale = 1.0 / math.sqrt(d)
+    qc = _Q_CHUNK if sq > _Q_CHUNK and sq % _Q_CHUNK == 0 else sq
+    outs = []
+    for q0 in range(0, sq, qc):
+        qb = q[:, :, q0:q0 + qc].float() * scale
+        qb = qb.reshape(b, hkv, hq // hkv, -1, d)
+        pr = torch.softmax(torch.matmul(qb, kf), dim=-1)
+        outs.append(torch.matmul(pr, vf).reshape(b, hq, -1, d))
+    o = outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
+    return o.to(q.dtype)
+
+
+def cross_fwd(p, x: torch.Tensor, ctx: torch.Tensor,
+              cfg: AttnConfig) -> torch.Tensor:
+    """Text rows x (B, S, d_model) attend, without a mask, over the image
+    context ctx (B, n_ctx, d_model): per-head RMS-normed q and k, no RoPE;
+    the output ``tanh(gate) * (o @ wo)``.  The decode step calls it on the
+    one new row."""
+    b, s, _ = x.shape
+    sk = ctx.shape[1]
+    h, kvh, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    q = rms_norm((x @ p["wq"]).view(b, s, h, hd), p["q_scale"])
+    k = rms_norm((ctx @ p["wk"]).view(b, sk, kvh, hd), p["k_scale"])
+    v = (ctx @ p["wv"]).view(b, sk, kvh, hd)
+    o = _sdpa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    o = o.transpose(1, 2).reshape(b, s, h * hd)
+    return torch.tanh(p["gate"]) * (o @ p["wo"])

@@ -1,4 +1,5 @@
-"""The composable LM, for the attention and MoE blocks, on one device.
+"""The composable LM, for the attention, MLA, cross-attention and MoE
+blocks, on one device.
 
 Port of ``repro/models/lm.py``.  An architecture is a repeating pattern of
 typed blocks plus an optional prelude.  The reference stacks each pattern
@@ -15,12 +16,21 @@ Block kinds ported:
 ``moe``          GQA attention + MoE FFN (deepseek, moonshot)
 ``dense``        GQA attention + dense gated FFN of ``d_ff`` (their first
                  layer)
+``mla``          multi-head latent attention + FFN (minicpm3)
+``xattn``        gated cross-attention over patch embeddings + FFN
+                 (llama-vision)
 
-Every other kind (``mla``, ``xattn``, ``mamba``, ``mamba_shared``,
-``mlstm``, ``slstm``) raises ``NotImplementedError`` (ROADMAP A3).
-Caches: each attention layer owns ``{"k", "v", "pos"}``; sliding-window
-layers a ring of ``min(window, s_max)`` slots.  Audio models (hubert) take
-float frame embeddings (B, S, d_model) where the others take token ids.
+The Mamba2 and xLSTM kinds (``mamba``, ``mamba_shared``, ``mlstm``,
+``slstm``) raise ``NotImplementedError`` (ROADMAP A3).
+Caches: each GQA layer owns ``{"k", "v", "pos"}``, sliding-window layers a
+ring of ``min(window, s_max)`` slots; each MLA layer owns the latent
+``{"kv_lat", "k_rope", "pos"}``; a cross-attention layer has none (its
+slot in the list is ``None``: it re-projects the context every step, as
+the reference).  Audio models (hubert) take float frame embeddings
+(B, S, d_model) where the others take token ids; a model with
+cross-attention layers (llama-vision) also takes the image context ``ctx``
+(B, n_ctx_tokens, d_model), precomputed patch embeddings (the reference's
+stub vision tower).
 """
 
 from __future__ import annotations
@@ -37,24 +47,26 @@ from ..core.device import DeviceLike, resolve_device
 from . import attention as attn_mod
 from . import ffn as ffn_mod
 from . import moe as moe_mod
-from .attention import AttnConfig
+from .attention import AttnConfig, MLAConfig
 from .common import dense_init, embed_init, layer_norm, rms_norm
 from .ffn import FFNConfig
 from .moe import MoEConfig
 
-#: block kinds that attend by GQA (every ported kind)
+#: block kinds that attend by GQA (the ones that launch flash_attention in
+#: prefill)
 ATTN_KINDS = ("attn", "attn_local", "attn_global", "attn_bidir", "dense",
               "moe")
+#: every block kind the port runs
+PORTED_KINDS = ATTN_KINDS + ("mla", "xattn")
 #: block kinds of the reference that the port does not run yet
-NOT_PORTED_KINDS = ("mla", "xattn", "mamba", "mamba_shared", "mlstm",
-                    "slstm")
+NOT_PORTED_KINDS = ("mamba", "mamba_shared", "mlstm", "slstm")
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     """The reference's ``ArchConfig``, field for field, with ``dtype`` a
-    torch dtype.  The MLA, SSM and VLM fields are carried so that config
-    files copy over; their blocks are not ported yet."""
+    torch dtype.  The SSM fields are carried so that config files copy
+    over; their blocks are not ported yet."""
     name: str
     family: str                 # dense | moe | hybrid | ssm | audio | vlm
     n_layers: int
@@ -128,6 +140,11 @@ class ArchConfig:
             softcap=self.softcap or None, qk_norm=self.qk_norm,
             rope_theta=self.rope_theta)
 
+    def mla_cfg(self) -> MLAConfig:
+        return MLAConfig(self.d_model, self.n_heads, self.q_lora_rank,
+                         self.kv_lora_rank, self.qk_nope_dim,
+                         self.qk_rope_dim, self.v_head_dim, self.rope_theta)
+
     def ffn_cfg(self) -> FFNConfig:
         return FFNConfig(self.d_model, self.d_ff, self.activation,
                          gated=self.norm == "rms")
@@ -147,7 +164,7 @@ def _check_kind(kind: str) -> None:
     if kind in NOT_PORTED_KINDS:
         raise NotImplementedError(
             f"block kind {kind!r} is not ported to PyTorch yet (ROADMAP A3)")
-    if kind not in ATTN_KINDS:
+    if kind not in PORTED_KINDS:
         raise ValueError(f"unknown block kind {kind!r}")
 
 
@@ -174,8 +191,13 @@ def init_block(gen: Optional[torch.Generator], kind: str, cfg: ArchConfig,
                device=None) -> Dict[str, Any]:
     _check_kind(kind)
     dt = cfg.dtype
-    p = {"ln1": _norm_init(cfg, dt, device),
-         "attn": attn_mod.init_gqa(gen, cfg.attn_cfg(kind), dt, device),
+    if kind == "mla":
+        attn = attn_mod.init_mla(gen, cfg.mla_cfg(), dt, device)
+    elif kind == "xattn":
+        attn = attn_mod.init_cross(gen, cfg.attn_cfg(kind), dt, device)
+    else:
+        attn = attn_mod.init_gqa(gen, cfg.attn_cfg(kind), dt, device)
+    p = {"ln1": _norm_init(cfg, dt, device), "attn": attn,
          "ln2": _norm_init(cfg, dt, device)}
     if kind == "moe":
         p["moe"] = moe_mod.init_moe(gen, cfg.moe_cfg(), dt, device)
@@ -210,15 +232,31 @@ def _attn_then_ffn(p, x: torch.Tensor, a: torch.Tensor, cfg: ArchConfig,
     return x + f, aux
 
 
+def _need_ctx(ctx):
+    if ctx is None:
+        raise ValueError("a cross-attention block needs the image context "
+                         "ctx (B, n_ctx_tokens, d_model)")
+    return ctx
+
+
 def block_fwd(kind: str, p, x: torch.Tensor, cfg: ArchConfig,
-              positions: Optional[torch.Tensor] = None, moe_stats=None
+              positions: Optional[torch.Tensor] = None, moe_stats=None,
+              ctx: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence block.  Returns (x, aux): the MoE aux loss of a
     ``moe`` block, a float32 zero otherwise.  ``moe_stats``: see
-    :func:`repro_torch.models.moe.moe_fwd`."""
+    :func:`repro_torch.models.moe.moe_fwd`; ``ctx``: the image context of
+    an ``xattn`` block (read by no other kind)."""
     _check_kind(kind)
-    a = attn_mod.gqa_fwd(p["attn"], _apply_norm(p["ln1"], x, cfg),
-                         cfg.attn_cfg(kind), positions=positions)
+    h = _apply_norm(p["ln1"], x, cfg)
+    if kind == "mla":
+        a = attn_mod.mla_fwd(p["attn"], h, cfg.mla_cfg(), positions=positions)
+    elif kind == "xattn":
+        a = attn_mod.cross_fwd(p["attn"], h, _need_ctx(ctx),
+                               cfg.attn_cfg(kind))
+    else:
+        a = attn_mod.gqa_fwd(p["attn"], h, cfg.attn_cfg(kind),
+                             positions=positions)
     x, aux = _attn_then_ffn(p, x, a, cfg, moe_stats)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -226,33 +264,51 @@ def block_fwd(kind: str, p, x: torch.Tensor, cfg: ArchConfig,
 
 
 def block_decode(kind: str, p, x: torch.Tensor, cache, cfg: ArchConfig,
-                 pos: int):
-    """Single-token step.  Returns (x, cache)."""
+                 pos: int, ctx: Optional[torch.Tensor] = None):
+    """Single-token step.  Returns (x, cache); an ``xattn`` block attends
+    over ``ctx`` anew and has no cache (None in, None out)."""
     _check_kind(kind)
     if kind == "attn_bidir":
         raise ValueError("an encoder block has no decode step")
-    a, cache = attn_mod.gqa_decode(p["attn"], _apply_norm(p["ln1"], x, cfg),
-                                   cache, cfg.attn_cfg(kind), pos)
+    h = _apply_norm(p["ln1"], x, cfg)
+    if kind == "mla":
+        a, cache = attn_mod.mla_decode(p["attn"], h, cache, cfg.mla_cfg(),
+                                       pos)
+    elif kind == "xattn":
+        a = attn_mod.cross_fwd(p["attn"], h, _need_ctx(ctx),
+                               cfg.attn_cfg(kind))
+    else:
+        a, cache = attn_mod.gqa_decode(p["attn"], h, cache,
+                                       cfg.attn_cfg(kind), pos)
     return _attn_then_ffn(p, x, a, cfg)[0], cache
 
 
-def block_cache_shapes(kind: str, cfg: ArchConfig, batch: int,
-                       s_max: int) -> Dict[str, Tuple[Tuple[int, ...], Any]]:
-    """``{name: (shape, dtype)}`` of one layer's decode cache."""
+def block_cache_shapes(kind: str, cfg: ArchConfig, batch: int, s_max: int
+                       ) -> Optional[Dict[str, Tuple[Tuple[int, ...], Any]]]:
+    """``{name: (shape, dtype)}`` of one layer's decode cache; None for a
+    cross-attention layer, which has none."""
     _check_kind(kind)
     if kind == "attn_bidir":
         raise ValueError("an encoder block has no decode cache")
+    if kind == "xattn":
+        return None
+    if kind == "mla":
+        return {"kv_lat": ((batch, s_max, cfg.kv_lora_rank), cfg.dtype),
+                "k_rope": ((batch, s_max, cfg.qk_rope_dim), cfg.dtype),
+                "pos": ((s_max,), torch.int32)}
     s = min(cfg.window, s_max) if kind == "attn_local" else s_max
     kv = ((batch, cfg.n_kv, s, cfg.hd), cfg.dtype)
     return {"k": kv, "v": kv, "pos": ((s,), torch.int32)}
 
 
 def block_cache_zeros(kind: str, cfg: ArchConfig, batch: int, s_max: int,
-                      device=None) -> Dict[str, torch.Tensor]:
-    """Empty decode cache for one layer: K/V zeros, every slot's position
-    -1.  Sliding-window layers get a ring of ``min(window, s_max)``
-    slots."""
+                      device=None) -> Optional[Dict[str, torch.Tensor]]:
+    """Empty decode cache for one layer: zeros, every slot's position -1
+    (None for a cross-attention layer).  Sliding-window layers get a ring
+    of ``min(window, s_max)`` slots."""
     shapes = block_cache_shapes(kind, cfg, batch, s_max)
+    if shapes is None:
+        return None
     cache = {n: torch.zeros(shp, dtype=dt, device=device)
              for n, (shp, dt) in shapes.items()}
     cache["pos"].fill_(-1)
@@ -333,21 +389,55 @@ class LM(nn.Module):
             x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
         return x
 
-    def forward(self, tokens: torch.Tensor, return_aux: bool = False,
+    def _ctx(self, ctx: Optional[torch.Tensor], batch: int):
+        """The image context in the model's type, checked: required (B,
+        n, d_model) when the model has cross-attention layers, ignored
+        (as the reference ignores it) when it has none."""
+        cfg = self.cfg
+        if "xattn" not in cfg.layer_kinds:
+            return None
+        if ctx is None:
+            raise ValueError(f"{cfg.name} has cross-attention layers: pass "
+                             f"ctx (B, n_ctx_tokens={cfg.n_ctx_tokens}, "
+                             f"d_model={cfg.d_model})")
+        if ctx.dim() != 3 or ctx.shape[0] != batch or \
+                ctx.shape[2] != cfg.d_model:
+            raise ValueError(f"ctx of shape {tuple(ctx.shape)} for batch "
+                             f"{batch} and d_model {cfg.d_model}")
+        return ctx.to(cfg.dtype)
+
+    def set_xattn_gates(self, value: float) -> int:
+        """Set every cross-attention gate to ``value``; returns how many.
+        The reference zero-initialises the gates, so at init ``tanh(0)``
+        removes the cross-attention layers from the output; a check that
+        must see those layers opens them first."""
+        n = 0
+        with torch.no_grad():
+            for kind, p in zip(self.cfg.layer_kinds, self.layers):
+                if kind == "xattn":
+                    p["attn"]["gate"].fill_(value)
+                    n += 1
+        return n
+
+    def forward(self, tokens: torch.Tensor,
+                ctx: Optional[torch.Tensor] = None, return_aux: bool = False,
                 moe_stats: Optional[Dict[str, Any]] = None):
         """Full-sequence pass: the final-normed hidden states (B, S, D) of
-        token ids (B, S) or frame embeddings (B, S, d_model); with
+        token ids (B, S) or frame embeddings (B, S, d_model), with the
+        image context ``ctx`` (B, n_ctx_tokens, d_model) of a model with
+        cross-attention layers (required there, else ignored); with
         ``return_aux``, (hidden, the MoE aux loss summed over the layers in
         order, float32).  (The reference also returns its decode caches;
         the port's prefill needs none.)  ``moe_stats``: see
         :func:`repro_torch.models.moe.moe_fwd`."""
         cfg = self.cfg
         x = self._embed(tokens)
+        ctx = self._ctx(ctx, x.shape[0])
         positions = torch.arange(x.shape[1], device=x.device)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for kind, p in zip(cfg.layer_kinds, self.layers):
             x, aux = block_fwd(kind, p, x, cfg, positions=positions,
-                               moe_stats=moe_stats)
+                               moe_stats=moe_stats, ctx=ctx)
             aux_total = aux_total + aux
         hidden = _apply_norm(self.final_norm, x, cfg)
         return (hidden, aux_total) if return_aux else hidden
@@ -363,24 +453,31 @@ class LM(nn.Module):
         return lg
 
     # ---- serving -----------------------------------------------------------
-    def prefill(self, tokens: torch.Tensor) -> torch.Tensor:
+    def prefill(self, tokens: torch.Tensor,
+                ctx: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Last-position logits (B, 1, V) of the prompts (no cache, as the
-        reference's lowered serving path)."""
-        return self.logits(self.forward(tokens)[:, -1:])
+        reference's lowered serving path); ``ctx`` as :meth:`forward`."""
+        return self.logits(self.forward(tokens, ctx)[:, -1:])
 
-    def init_cache(self, batch: int, s_max: int) -> List[Dict[str, Any]]:
-        """Empty decode caches, one per layer, on the model's device."""
+    def init_cache(self, batch: int,
+                   s_max: int) -> List[Optional[Dict[str, Any]]]:
+        """Empty decode caches, one per layer, on the model's device (None
+        for a cross-attention layer)."""
         return [block_cache_zeros(kind, self.cfg, batch, s_max, self.device)
                 for kind in self.cfg.layer_kinds]
 
-    def decode_step(self, token: torch.Tensor, pos: int, caches):
+    def decode_step(self, token: torch.Tensor, pos: int, caches,
+                    ctx: Optional[torch.Tensor] = None):
         """One-token decode.  token: (B, 1) integer (or (B, 1, d_model)
-        features); pos: the absolute position (int).  Returns (logits
+        features); pos: the absolute position (int); ``ctx`` as
+        :meth:`forward`, the same at every step.  Returns (logits
         (B, 1, V) float32, caches), the caches updated in place."""
         cfg = self.cfg
         x = self._embed(token)
+        ctx = self._ctx(ctx, x.shape[0])
         for i, (kind, p) in enumerate(zip(cfg.layer_kinds, self.layers)):
-            x, caches[i] = block_decode(kind, p, x, caches[i], cfg, pos)
+            x, caches[i] = block_decode(kind, p, x, caches[i], cfg, pos,
+                                        ctx=ctx)
         x = _apply_norm(self.final_norm, x, cfg)
         return self.logits(x), caches
 
@@ -416,7 +513,9 @@ def load_reference_params(tree: Dict[str, Any], cfg: ArchConfig,
     pattern position over the repeats: ``stack/b{i}/...[r]`` is layer
     ``len(prelude) + r * len(pattern) + i`` (for gemma2, repeat r runs b0,
     the local layer, then b1, the global one); ``prelude/p{i}`` is layer
-    i.
+    i.  Leaves are read by name, so MLA's (``attn.wq_a`` ...) and the
+    cross-attention's 0-d ``attn.gate`` (stacked to (R,), sliced back to
+    0-d) need nothing of their own.
 
     Every leaf keeps its own type (the MoE router is float32 in a bf16
     model, as the reference's), and must have the type of the port's

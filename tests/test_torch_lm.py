@@ -21,7 +21,9 @@ import repro.configs as jconfigs
 from repro.models.lm import make_model
 from repro_torch import configs as tconfigs
 from repro_torch.launch.steps import build_prefill_step, build_serve_step
-from repro_torch.models.lm import LM, load_reference_params
+from repro_torch.models.attention import MLAConfig
+from repro_torch.models.lm import (ATTN_KINDS, LM, NOT_PORTED_KINDS,
+                                   PORTED_KINDS, load_reference_params)
 
 B, S = 2, 24            # 24 > the reduced window of 16: the ring wraps
 F32_TOL = dict(rtol=1e-3, atol=1e-4)
@@ -190,13 +192,27 @@ def test_param_count_equals_reference():
 
 def test_unported_architectures_and_blocks_raise():
     with pytest.raises(NotImplementedError, match="A3"):
-        tconfigs.get_config("minicpm3-4b")
+        tconfigs.get_config("zamba2-7b")
     assert set(tconfigs.NOT_PORTED) | set(tconfigs.ARCH_NAMES) == \
         set(jconfigs.ARCH_NAMES)
     cfg = dataclasses.replace(tconfigs.reduced("gemma2-9b"),
-                              pattern=("attn", "mla"))
+                              pattern=("attn", "mamba"))
     with pytest.raises(NotImplementedError, match="A3"):
         LM(cfg, device="cpu")
+
+
+def test_block_kinds_and_configs():
+    assert set(NOT_PORTED_KINDS) == {"mamba", "mamba_shared", "mlstm",
+                                     "slstm"}
+    assert set(PORTED_KINDS) == set(ATTN_KINDS) | {"mla", "xattn"}
+    assert tconfigs.NOT_PORTED == ("zamba2-7b", "xlstm-350m")
+    assert tconfigs.get_config("minicpm3-4b").layer_kinds == ("mla",) * 62
+    kinds = tconfigs.get_config("llama-3.2-vision-11b").layer_kinds
+    assert len(kinds) == 40 and kinds.count("xattn") == 8
+    assert [i for i, k in enumerate(kinds) if k == "xattn"] == \
+        list(range(4, 40, 5))
+    assert tconfigs.get_config("minicpm3-4b").mla_cfg() == MLAConfig(
+        2560, 40, 768, 256, 64, 32, 64, 10000.0)
 
 
 def test_input_specs_are_concrete():
@@ -216,9 +232,10 @@ def test_input_specs_are_concrete():
     assert tconfigs.input_specs(dataclasses.replace(cfg, encoder_only=True),
                                 "prefill_32k", batch=2, seq=8) == {
         "tokens": ((2, 8, 3584), torch.bfloat16)}
-    with pytest.raises(NotImplementedError, match="A3"):
-        tconfigs.input_specs(dataclasses.replace(cfg, family="vlm"),
-                             "prefill_32k")
+    vlm = dataclasses.replace(cfg, family="vlm", n_ctx_tokens=16)
+    assert tconfigs.input_specs(vlm, "prefill_32k", batch=2, seq=8) == {
+        "tokens": ((2, 8), torch.int32),
+        "ctx": ((2, 16, 3584), torch.bfloat16)}
 
 
 # --------------------------------------------------------------------------

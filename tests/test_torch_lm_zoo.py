@@ -1,7 +1,16 @@
-"""The five configs of the dense and MoE families against the JAX package,
-on the CPU: stablelm-1.6b and codeqwen1.5-7b (dense GQA), hubert-xlarge
-(encoder, frame-embedding inputs), deepseek-moe-16b and moonshot-v1-16b-a3b
-(a dense first layer, then MoE layers).
+"""Seven configs against the JAX package, on the CPU: stablelm-1.6b and
+codeqwen1.5-7b (dense GQA), hubert-xlarge (encoder, frame-embedding
+inputs), deepseek-moe-16b and moonshot-v1-16b-a3b (a dense first layer,
+then MoE layers), minicpm3-4b (MLA) and llama-3.2-vision-11b (GQA layers
+and a gated cross-attention layer over a seeded image context).
+
+The per-config checks (``check_forward``, ``check_decode``,
+``check_config``) run here for the five dense and MoE configs and in
+``tests/test_torch_mla_xattn.py`` for the MLA and VLM configs; the
+parameter counts and the cells cover all seven here.  The reference
+zero-initialises the cross-attention gate, so that at init ``tanh(0)``
+multiplies the whole cross-attention away; ``_pair`` sets every gate of
+the reference's tree to 0.5 before both packages load it.
 
 Each reduced model holds the reference's parameters, carried across by
 ``load_reference_params``.  Bands: float32 rtol 1e-3, atol 1e-4 (the
@@ -36,12 +45,16 @@ from repro_torch import configs as tconfigs
 from repro_torch.launch.steps import build_prefill_step, build_serve_step
 from repro_torch.models.lm import load_reference_params
 
-NAMES = ("stablelm-1.6b", "codeqwen1.5-7b", "hubert-xlarge",
-         "deepseek-moe-16b", "moonshot-v1-16b-a3b")
-DECODERS = tuple(n for n in NAMES if n != "hubert-xlarge")
+DENSE_MOE = ("stablelm-1.6b", "codeqwen1.5-7b", "hubert-xlarge",
+             "deepseek-moe-16b", "moonshot-v1-16b-a3b")
+MLA_XATTN = ("minicpm3-4b", "llama-3.2-vision-11b")
+NAMES = DENSE_MOE + MLA_XATTN
+DECODERS = tuple(n for n in DENSE_MOE if n != "hubert-xlarge")
 B, S = 2, 24
 F32_TOL = dict(rtol=1e-3, atol=1e-4)
 BF16_TOL = dict(rtol=5e-2, atol=1e-1)
+#: the cross-attention gates' value in the parity tests (zero at init)
+GATE = 0.5
 #: relative top-k gap under which bf16 rounding may flip a routing choice
 TIE_GAP = 0.05
 DTYPES = {"f32": (jnp.float32, torch.float32),
@@ -51,16 +64,27 @@ TORCH_OF = {jnp.dtype(jnp.int32): torch.int32,
             jnp.dtype(jnp.bfloat16): torch.bfloat16}
 
 
+def with_gates(tree, gate=GATE):
+    """The reference's numpy tree with every cross-attention gate set to
+    ``gate`` (in the gate's type)."""
+    def walk(node):
+        return {k: (walk(v) if isinstance(v, dict) else
+                    np.full_like(v, gate) if k == "gate" else v)
+                for k, v in node.items()}
+    return walk(tree)
+
+
 def _pair(name, dtype):
-    """(JAX model, its params, the port's model holding them)."""
+    """(JAX model, its params, the port's model holding them), the gates
+    at ``GATE``."""
     jdt, tdt = DTYPES[dtype]
     jcfg = dataclasses.replace(jconfigs.reduced(name), dtype=jdt)
     tcfg = dataclasses.replace(tconfigs.reduced(name), dtype=tdt)
     jm = make_model(jcfg)
-    params = jm.init(jax.random.PRNGKey(0))
-    tm = load_reference_params(jax.tree.map(np.asarray, params), tcfg,
-                               device="cpu")
-    return jm, params, tm
+    tree = with_gates(jax.tree.map(np.asarray,
+                                   jm.init(jax.random.PRNGKey(0))))
+    tm = load_reference_params(tree, tcfg, device="cpu")
+    return jm, jax.tree.map(jnp.asarray, tree), tm
 
 
 def _inputs(cfg, seed=0, s=S):
@@ -69,6 +93,17 @@ def _inputs(cfg, seed=0, s=S):
     if cfg.family == "audio":
         return rng.standard_normal((B, s, cfg.d_model)).astype(np.float32)
     return rng.integers(0, cfg.vocab, (B, s)).astype(np.int32)
+
+
+def _ctx(jm, tm, seed=7):
+    """The image context of a VLM, N(0, 1) in the model's type, for each
+    package (None, None for another model)."""
+    cfg = tm.cfg
+    if cfg.family != "vlm":
+        return None, None
+    c = np.random.default_rng(seed).standard_normal(
+        (B, cfg.n_ctx_tokens, cfg.d_model)).astype(np.float32)
+    return jnp.asarray(c, jm.cfg.dtype), torch.from_numpy(c).to(cfg.dtype)
 
 
 def _np(t):
@@ -100,15 +135,18 @@ def _near_ties(jm, params, x) -> np.ndarray:
     return near
 
 
-@pytest.mark.parametrize("dtype", ["f32", "bf16"])
-@pytest.mark.parametrize("name", NAMES)
-def test_forward_logits_prefill_and_aux_match_jax(name, dtype):
+def check_forward(name, dtype):
+    """forward's hidden states, logits, prefill and aux loss against the
+    reference's, in ``dtype``."""
     jm, params, tm = _pair(name, dtype)
     x = _inputs(tm.cfg)
-    jh, _, jaux = jax.jit(lambda p, t: jm.forward(p, t, remat=False))(
-        params, jnp.asarray(x))
+    jctx, tctx = _ctx(jm, tm)
+    jh, _, jaux = jax.jit(lambda p, t, c: jm.forward(p, t, ctx=c,
+                                                     remat=False))(
+        params, jnp.asarray(x), jctx)
     stats = {}
-    th, taux = tm(torch.from_numpy(x), return_aux=True, moe_stats=stats)
+    th, taux = tm(torch.from_numpy(x), tctx, return_aux=True,
+                  moe_stats=stats)
     tol = F32_TOL if dtype == "f32" else BF16_TOL
     keep = np.ones((B, S), bool)
     if dtype == "bf16" and tm.cfg.family == "moe":
@@ -120,7 +158,7 @@ def test_forward_logits_prefill_and_aux_match_jax(name, dtype):
                                np.asarray(jm.logits(params, jh))[keep], **tol)
     # the reference's prefill: the logits of forward's last position
     want = np.asarray(jm.logits(params, jh[:, -1:]))
-    got = tm.prefill(torch.from_numpy(x))
+    got = tm.prefill(torch.from_numpy(x), tctx)
     assert got.shape == (B, 1, tm.cfg.vocab) and got.dtype == torch.float32
     np.testing.assert_allclose(_np(got)[keep[:, -1]], want[keep[:, -1]],
                                **tol)
@@ -135,19 +173,32 @@ def test_forward_logits_prefill_and_aux_match_jax(name, dtype):
         assert float(taux) == float(jaux) == 0.0 and not stats
 
 
-@pytest.mark.parametrize("name", DECODERS)
-def test_decode_sequence_matches_jax(name):
-    """24 decode steps from empty caches, float32."""
+def check_decode(name):
+    """24 decode steps from empty caches, float32 (a VLM with its image
+    context at every step)."""
     jm, params, tm = _pair(name, "f32")
     tok = _inputs(tm.cfg, seed=2)
+    jctx, tctx = _ctx(jm, tm)
     jc = jm.init_cache(B, S)
     tc = tm.init_cache(B, S)
     dec = jax.jit(jm.decode_step)
     for t in range(S):
         want, jc = dec(params, jnp.asarray(tok[:, t:t + 1]),
-                       jnp.asarray(t, jnp.int32), jc)
-        got, tc = tm.decode_step(torch.from_numpy(tok[:, t:t + 1]), t, tc)
+                       jnp.asarray(t, jnp.int32), jc, ctx=jctx)
+        got, tc = tm.decode_step(torch.from_numpy(tok[:, t:t + 1]), t, tc,
+                                 tctx)
         np.testing.assert_allclose(_np(got), np.asarray(want), **F32_TOL)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("name", DENSE_MOE)
+def test_forward_logits_prefill_and_aux_match_jax(name, dtype):
+    check_forward(name, dtype)
+
+
+@pytest.mark.parametrize("name", DECODERS)
+def test_decode_sequence_matches_jax(name):
+    check_decode(name)
 
 
 # --------------------------------------------------------------------------
@@ -158,8 +209,8 @@ def _fields(cfg):
     return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
 
 
-@pytest.mark.parametrize("name", NAMES)
-def test_configs_equal_reference_field_by_field(name):
+def check_config(name):
+    """get_config and reduced equal the reference's, field by field."""
     assert name in tconfigs.ARCH_NAMES and name not in tconfigs.NOT_PORTED
     for which in ("get_config", "reduced"):
         want = _fields(getattr(jconfigs, which)(name))
@@ -167,6 +218,11 @@ def test_configs_equal_reference_field_by_field(name):
         assert want.pop("dtype") == jnp.bfloat16
         assert got.pop("dtype") == torch.bfloat16
         assert got == want, which
+
+
+@pytest.mark.parametrize("name", DENSE_MOE)
+def test_configs_equal_reference_field_by_field(name):
+    check_config(name)
 
 
 def test_param_count_equals_reference():
@@ -182,16 +238,18 @@ def test_param_count_equals_reference():
 def _ref_specs(cfg, shape):
     """The reference's input specs as the port's: {name: (shape, dtype)},
     the caches as one dict per layer in run order (the reference stacks
-    each pattern position over the repeats)."""
+    each pattern position over the repeats and leaves the cache-less
+    cross-attention positions out; the port's list holds None there)."""
     specs = jconfigs.input_specs(cfg, shape)
     out = {}
     for key, val in specs.items():
         if key == "caches":
             layers = [val[f"p{i}"] for i in range(len(cfg.prelude))]
             for r in range(cfg.n_repeats):
-                layers += [val["stack"][f"b{i}"]
+                layers += [val["stack"].get(f"b{i}")
                            for i in range(len(cfg.pattern))]
-            out[key] = [{n: (tuple(a.shape[1:] if i >= len(cfg.prelude)
+            out[key] = [None if c is None else
+                        {n: (tuple(a.shape[1:] if i >= len(cfg.prelude)
                                    else a.shape), TORCH_OF[a.dtype])
                          for n, a in c.items()}
                         for i, c in enumerate(layers)]
