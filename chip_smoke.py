@@ -89,23 +89,29 @@ stablelm-1.6b (head dim 64), codeqwen1.5-7b (128), hubert-xlarge (an
 encoder on seeded frame embeddings, head dim 80), deepseek-moe-16b and
 moonshot-v1-16b-a3b (a dense first layer, then MoE layers of 64 experts,
 top 6; head dim 128), minicpm3-4b (62 MLA layers: latent q and kv, plain
-ops, no kernel) and llama-3.2-vision-11b (32 GQA layers of Hq 32 / Hkv 8
+ops, no kernel), llama-3.2-vision-11b (32 GQA layers of Hq 32 / Hkv 8
 at D 128 and 8 gated cross-attention layers over a seeded image context of
-1600 patch embeddings; the gates, zero at init, set to 0.5):
+1600 patch embeddings; the gates, zero at init, set to 0.5) and zamba2-7b
+(81 Mamba2 layers, the chunked SSD in plain ops, and one shared attention
+block of 32 heads of D 112 called from 13 of them):
 
 * prefill of 2 x 8192 tokens (prefill_32k cut to S 8192, batch 2), a
   warm-up and 3 timed, every one the same bits, each GQA layer's launch
-  on the tensor-core kernel (none for MLA and cross-attention layers);
-  the MoE configs' share of assignments dropped at capacity;
+  on the tensor-core kernel (none for MLA and cross-attention layers;
+  one for each of zamba2's 13 shared-block call sites); the MoE configs'
+  share of assignments dropped at capacity;
 * 16 decode steps of the six decoders at batch 2 on 8192 cache slots
   (decode_32k cut from 32768 slots and batch 128); hubert's serve step is
   refused (no decode step);
-* ``flash_attention`` timed at hubert's D 80 shape and at llama-vision's
-  GQA-4 D 128 shape;
+* ``flash_attention`` timed at hubert's D 80 shape, at llama-vision's
+  GQA-4 D 128 shape and at zamba2's first shared-block call (D 112);
 * a torch.profiler window over one prefill and 3 decode steps of each MoE,
-  MLA and VLM config (device time by kernel, idle share);
+  MLA, VLM and hybrid config (device time by kernel, idle share), and
+  zamba2's chunked SSD timed alone at a layer's prefill shape;
 * decode-equals-prefill in float32 at 4 layers of each decoder's widths
-  (llama-vision: 5, its whole pattern).
+  (llama-vision: 5, its whole pattern; zamba2: 9, three prelude Mamba2
+  layers and one pattern repeat with its shared-block call, SSD chunks of
+  8 so that the prefills span one, two and four chunks).
 
 Each path is run with the kernel counters set to 0 just before it and read
 just after, and must have launched the kernels it runs (and called none of
@@ -173,7 +179,8 @@ FLASH_TOL = {"float32": (2e-4, 2e-4), "bfloat16": (1e-2, 1e-4)}
 #: changes the softmax (at std 1 it moves no output out of the band)
 FLASH_Q_SCALE = 4.0
 #: head dims of the flash checks: gemma2's 256, the zoo's 64 (stablelm),
-#: 80 (hubert) and 128 (codeqwen, deepseek, moonshot)
+#: 80 (hubert) and 128 (codeqwen, deepseek, moonshot); zamba2's 112 is
+#: checked at its own heads (phase_flash_checks)
 FLASH_DIMS = (64, 80, 128, 256)
 LM_RTOL, LM_ATOL = 1e-3, 1e-4  # decode vs forward (tests/test_models.py:86)
 SART_TOL = 2e-3            # streamed vs plain (tests/test_algorithms.py:77)
@@ -1913,8 +1920,9 @@ def phase_fleet(n: int, ds, solos, rel_single, smi):
 
 def phase_flash_checks():
     """flash_attention against its plain version on the card: S 1000 (no
-    tile divides it), head dims 64, 80, 128 and 256, Hq/Hkv 1, 2 and 8, and
-    at D 128 also llama-3.2-vision's 32/8 (a group of 4), causal and not,
+    tile divides it), head dims 64, 80, 128 and 256, Hq/Hkv 1, 2 and 8, at
+    D 128 also llama-3.2-vision's 32/8 (a group of 4), and at zamba2's
+    D 112 its 32/32 and 32/8, causal and not,
     windows 64 and 4096, soft-cap none and 50, float32 and bfloat16; repeat
     launches bit-identical.  At D 256, Hq/Hkv 8 in bfloat16, the plain
     version with the window, the causal mask or the cap dropped must fall
@@ -1925,12 +1933,12 @@ def phase_flash_checks():
     s = 1000
     heads = ((4, 4), (8, 4), (16, 2))
     cases = [(d, hq, hkv) for d in FLASH_DIMS for hq, hkv in heads]
-    cases.append((128, 32, 8))
+    cases += [(128, 32, 8), (112, 32, 32), (112, 32, 8)]
     masks = ((True, None, None), (False, None, None), (True, 64, 50.0),
              (False, 64, None), (True, 4096, 50.0), (False, 4096, 50.0))
     log(f"== flash_attention checks at S={s}, D 64/80/128/256, Hq/Hkv 1/2/8 "
-        f"(and 32/8 at D 128), {len(masks)} mask and cap settings, float32 "
-        "and bfloat16")
+        f"(and 32/8 at D 128, 32/32 and 32/8 at D 112), {len(masks)} mask "
+        "and cap settings, float32 and bfloat16")
     from repro_torch import kernels
     gen = torch.Generator(device="cuda").manual_seed(4)
     worst = {}
@@ -1966,8 +1974,8 @@ def phase_flash_checks():
                                          "launch differs")
                 worst[dtype] = max(worst.get(dtype, 0.0), float(err.max()))
                 if hq == 32:
-                    worst[f"{dtype} GQA 4"] = max(
-                        worst.get(f"{dtype} GQA 4", 0.0), float(err.max()))
+                    tag = f"{dtype} D {d} Hq/Hkv 32/{hkv}"
+                    worst[tag] = max(worst.get(tag, 0.0), float(err.max()))
     torch.cuda.synchronize()
     n_cases = len(cases) * len(masks)
     paths = flash_paths()
@@ -2030,13 +2038,6 @@ def _lm_ctx(cfg, seed: int, batch: int):
 XATTN_GATE = 0.5
 
 
-def _gqa_layers(cfg) -> int:
-    """Layers that attend by GQA: flash_attention's launches per prefill
-    (MLA and cross-attention run in plain ops, as the reference's)."""
-    from repro_torch.models.lm import ATTN_KINDS
-    return sum(kind in ATTN_KINDS for kind in cfg.layer_kinds)
-
-
 def phase_lm_build(name: str, seed: int, smi):
     """Config ``name`` at full width and depth, bf16, weights drawn on the
     card from ``seed``."""
@@ -2055,6 +2056,12 @@ def phase_lm_build(name: str, seed: int, smi):
         + (f", {cfg.layer_kinds.count('xattn')} cross-attention layers over "
            f"{cfg.n_ctx_tokens} patch embeddings"
            if "xattn" in cfg.layer_kinds else "")
+        + (f", Mamba2 d_inner {cfg.mamba_cfg().d_inner} in "
+           f"{cfg.mamba_cfg().n_heads} heads of {cfg.mamba_cfg().head_dim}, "
+           f"state {cfg.mamba_cfg().d_state}, SSD chunk {cfg.ssd_chunk}; the "
+           f"shared attention block called from "
+           f"{cfg.layer_kinds.count('mamba_shared')} layers"
+           if "mamba" in cfg.layer_kinds else "")
         + f", vocab {cfg.vocab}, {cfg.dtype}")
     gen = torch.Generator(device="cuda").manual_seed(seed)
     torch.cuda.reset_peak_memory_stats()
@@ -2074,11 +2081,12 @@ def phase_prefill(model, inputs, reps: int = 3, ctx=None):
     an audio model's frame embeddings; a VLM's image context ``ctx``).  A
     warm-up forward (which also counts the MoE drops) and ``reps`` timed
     prefills, each ending in a sync, every one's logits the same bits;
-    every GQA layer's launch on the tensor-core kernel (MLA and
-    cross-attention layers launch none), no plain call."""
+    every GQA layer's and shared-block call's launch on the tensor-core
+    kernel (MLA and cross-attention layers launch none), no plain call."""
     import torch
     from repro_torch import kernels
     from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.models.lm import flash_layers
     cfg = model.cfg
     b, s = inputs.shape[:2]
     step = build_prefill_step(cfg, "prefill_32k", batch=b, seq=s,
@@ -2106,7 +2114,7 @@ def phase_prefill(model, inputs, reps: int = 3, ctx=None):
     paths = flash_paths()
     med = statistics.median(times)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    want = _gqa_layers(cfg) * (reps + 1)
+    want = flash_layers(cfg) * (reps + 1)
     if want:
         check_counts(counts, "prefill", f"{cfg.name} prefill")
     if counts["flash_attention"] != {"launches": want, "plain_calls": 0} or \
@@ -2133,6 +2141,17 @@ def phase_prefill(model, inputs, reps: int = 3, ctx=None):
                 peak_gib=peak, launches=want, drop_share=drop)
 
 
+def _leaves(tree, prefix: str = ""):
+    """(dotted name, leaf) of a layer's nested cache, or of its
+    ``{name: (shape, dtype)}`` specs."""
+    for name, val in tree.items():
+        key = prefix + name
+        if isinstance(val, dict):
+            yield from _leaves(val, key + ".")
+        else:
+            yield key, val
+
+
 def phase_decode(model, tokens, steps: int, slots: int, ctx=None):
     """build_serve_step on init_cache(B, slots): ``steps`` decode steps fed
     the prompts' first tokens at positions 0..steps-1 (a VLM's image
@@ -2147,8 +2166,9 @@ def phase_decode(model, tokens, steps: int, slots: int, ctx=None):
                             model=model)
     torch.cuda.reset_peak_memory_stats()
     caches = model.init_cache(b, slots)
-    shapes = [c and {n: tuple(t.shape) for n, t in c.items()} for c in caches]
-    if shapes != [c and {n: shp for n, (shp, _) in c.items()}
+    shapes = [c and {n: (tuple(t.shape), t.dtype) for n, t in _leaves(c)}
+              for c in caches]
+    if shapes != [c and dict(_leaves(c))
                   for c in step.in_specs["caches"]]:
         raise AssertionError("caches differ from the step's input specs")
     kernels.reset_counters()
@@ -2167,7 +2187,7 @@ def phase_decode(model, tokens, steps: int, slots: int, ctx=None):
     med = statistics.median(times)
     peak = torch.cuda.max_memory_allocated() / 2**30
     cache_gib = sum(t.numel() * t.element_size() for c in caches if c
-                    for t in c.values()) / 2**30
+                    for _, t in _leaves(c)) / 2**30
     log(f"  decode: {steps} steps at batch {b} on {slots} slots (decode_32k "
         f"cut to batch {b}): median {med:.2f} ms a step (first "
         f"{times[0]:.2f}, last {times[-1]:.2f}), caches {cache_gib:.2f} GiB, "
@@ -2193,7 +2213,7 @@ def phase_lm_consistency(name: str, seed: int, layers: int = 4, n: int = 32,
     import torch
     from repro_torch import kernels
     from repro_torch.configs import get_config
-    from repro_torch.models.lm import LM
+    from repro_torch.models.lm import LM, flash_layers
     if torch.backends.cuda.matmul.allow_tf32 or \
             torch.get_float32_matmul_precision() != "highest":
         raise AssertionError("TF32 matmuls are on")
@@ -2223,7 +2243,7 @@ def phase_lm_consistency(name: str, seed: int, layers: int = 4, n: int = 32,
                         f"outside rtol={LM_RTOL} atol={LM_ATOL} (max |err| "
                         f"{float(err.max()):.3g})")
                 worst = max(worst, float(err.max()))
-    n_flash = _gqa_layers(cfg) * len(at)
+    n_flash = flash_layers(cfg) * len(at)
     if counts != {"launches": n_flash, "plain_calls": 0} or \
             paths != {"wgmma": 0, "simt": n_flash}:
         raise AssertionError(f"{name}: prefills ran {counts}, by path {paths}")
@@ -2259,11 +2279,12 @@ def _device_report(prof, wall_ms: float, what: str, top: int = 12) -> None:
             f"{name[:110]}")
 
 
-def phase_lm_profile(model, inputs, slots: int, steps: int = 3, ctx=None):
+def phase_lm_profile(model, inputs, slots: int, steps: int = 3, ctx=None,
+                     top: int = 12):
     """torch.profiler over one prefill of ``inputs`` (with a VLM's
     ``ctx``) and ``steps`` decode steps on ``slots`` cache slots (after a
-    warm-up of each): where the device time goes and how much of the wall
-    time the device idles."""
+    warm-up of each): where the device time goes (the ``top`` kernels) and
+    how much of the wall time the device idles."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     b, s = inputs.shape[:2]
@@ -2276,7 +2297,7 @@ def phase_lm_profile(model, inputs, slots: int, steps: int = 3, ctx=None):
         torch.cuda.synchronize()
         with profile(activities=acts) as prof:
             ms, _ = once_ms(lambda: model.prefill(inputs, ctx))
-        _device_report(prof, ms, "prefill")
+        _device_report(prof, ms, "prefill", top)
         caches = model.init_cache(b, slots)
         model.decode_step(inputs[:, :1], 0, caches, ctx)
         torch.cuda.synchronize()
@@ -2284,24 +2305,75 @@ def phase_lm_profile(model, inputs, slots: int, steps: int = 3, ctx=None):
             ms, _ = once_ms(lambda: [
                 model.decode_step(inputs[:, t:t + 1], t, caches, ctx)
                 for t in range(1, steps + 1)])
-        _device_report(prof, ms, f"{steps} decode steps")
+        _device_report(prof, ms, f"{steps} decode steps", top)
     del caches
     torch.cuda.empty_cache()
 
 
+def phase_ssd_share(model, inputs, prefill_ms: float):
+    """A Mamba2 model's chunked SSD (``_ssd_chunked``: the float32 decays,
+    the masked intra-chunk product, the chunk states and the inter-chunk
+    loop) and its whole Mamba2 block, each timed alone (CUDA events,
+    median of 3) on layer 0's prefill input; times the Mamba2 layer count,
+    against the prefill's median wall time."""
+    import torch
+    from repro_torch.models import mamba2 as m2
+    from repro_torch.models.lm import _apply_norm
+    cfg = model.cfg
+    mc = cfg.mamba_cfg()
+    n_mamba = sum(k.startswith("mamba") for k in cfg.layer_kinds)
+    p = model.layers[0]
+    bsz, s = inputs.shape[:2]
+    with torch.inference_mode():
+        h = _apply_norm(p["ln1"], model._embed(inputs), cfg)
+        mp = p["mamba"]
+        x = m2._causal_conv(h @ mp["w_x"], mp["conv_x"], mp["conv_xb"])[0]
+        B = m2._causal_conv(h @ mp["w_B"], mp["conv_B"], mp["conv_Bb"])[0]
+        C = m2._causal_conv(h @ mp["w_C"], mp["conv_C"], mp["conv_Cb"])[0]
+        dt = m2._softplus((h @ mp["w_dt"]).float() + mp["dt_bias"])
+        a = -torch.exp(mp["a_log"])
+        xh = x.reshape(bsz, s, mc.n_heads, mc.head_dim)
+        B, C = B.float(), C.float()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ssd_ms = cuda_ms(lambda: m2._ssd_chunked(xh, dt, a, B, C, mc), reps=3)
+        ssd_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
+        block_ms = cuda_ms(lambda: m2.mamba2_fwd(mp, h, mc), reps=3)
+    del h, x, B, C, dt, xh
+    torch.cuda.empty_cache()
+    log(f"  Mamba2 layer 0 at {bsz} x {s}: chunked SSD {ssd_ms:.2f} ms "
+        f"(transient {ssd_gib:.2f} GiB), the whole block {block_ms:.2f} ms; "
+        f"x {n_mamba} layers: SSD {n_mamba * ssd_ms:.1f} ms "
+        f"({100 * n_mamba * ssd_ms / prefill_ms:.1f} % of the prefill's "
+        f"{prefill_ms:.1f} ms), Mamba2 blocks {n_mamba * block_ms:.1f} ms "
+        f"({100 * n_mamba * block_ms / prefill_ms:.1f} %)")
+    return dict(ssd_ms=ssd_ms, mamba_block_ms=block_ms,
+                ssd_share=n_mamba * ssd_ms / prefill_ms,
+                mamba_share=n_mamba * block_ms / prefill_ms)
+
+
 #: the configs of the zoo, run after gemma2-9b, one at a time: dense, MoE,
-#: MLA (minicpm3) and VLM (llama-vision)
+#: MLA (minicpm3), VLM (llama-vision) and hybrid (zamba2)
 ZOO = ("stablelm-1.6b", "codeqwen1.5-7b", "hubert-xlarge",
        "deepseek-moe-16b", "moonshot-v1-16b-a3b", "minicpm3-4b",
-       "llama-3.2-vision-11b")
-#: layers of each decoder's decode-vs-prefill check: 4, and llama-vision's
-#: whole 5-kind pattern (4 GQA layers and a cross-attention layer)
-ZOO_CHECK_LAYERS = {"llama-3.2-vision-11b": 5}
-#: flash_attention timed at layer 0 of these configs, under these tags on
-#: the kernels line: hubert's D 80 (non-causal) and llama-vision's GQA 4
-#: (Hq 32, Hkv 8) at D 128
+       "llama-3.2-vision-11b", "zamba2-7b")
+#: layers of each decoder's decode-vs-prefill check: 4, llama-vision's
+#: whole 5-kind pattern (4 GQA layers and a cross-attention layer), and
+#: zamba2's 3 prelude Mamba2 layers and one 6-layer repeat (5 Mamba2
+#: layers and a mamba_shared call of the shared block)
+ZOO_CHECK_LAYERS = {"llama-3.2-vision-11b": 5, "zamba2-7b": 9}
+#: the check's other changes: zamba2's SSD in chunks of 8, so that the
+#: prefixes of 8, 16 and 32 tokens run one, two and four chunks (at its
+#: chunk of 256 every prefix would be one chunk, and the inter-chunk
+#: recurrence would go unchecked)
+ZOO_CHECK_OVERRIDES = {"zamba2-7b": dict(ssd_chunk=8)}
+#: flash_attention timed at the first flash-launching layer of these
+#: configs, under these tags on the kernels line: hubert's D 80
+#: (non-causal), llama-vision's GQA 4 (Hq 32, Hkv 8) at D 128 and zamba2's
+#: shared block (32 / 32 heads of D 112, causal) at its first call site
 ZOO_FLASH_SHAPES = {"hubert-xlarge": "hubert_d80",
-                    "llama-3.2-vision-11b": "llama_vision_gqa4_d128"}
+                    "llama-3.2-vision-11b": "llama_vision_gqa4_d128",
+                    "zamba2-7b": "zamba2_d112"}
 #: their cuts: prefill_32k at S 8192 (batch 2 of 32); decode_32k at batch 2
 #: (of 128) on 8192 cache slots (of 32768: moonshot's 25.8 GB cache would
 #: not fit beside its 50.7 GB of weights), 16 steps
@@ -2315,10 +2387,11 @@ def phase_lm_zoo(seed: int, smi, reps: int = 3):
     llama-vision: a seeded image context of 1600 patch embeddings) through
     build_prefill_step, 16 decode steps of the decoders through
     build_serve_step, hubert's serve step refused; flash_attention timed
-    at hubert's D 80 shape and at llama-vision's GQA-4 D 128 shape; a
-    profiled prefill and 3 decode steps of each MoE, MLA and VLM config;
-    then decode vs prefill at 4 layers of each decoder's widths (5 for
-    llama-vision) in float32.  Returns (flash launches of the prefills,
+    at hubert's D 80 shape, llama-vision's GQA-4 D 128 shape and zamba2's
+    D 112 shape; a profiled prefill and 3 decode steps of each MoE, MLA,
+    VLM and hybrid config, and zamba2's SSD timed alone; then decode vs
+    prefill at 4 layers of each decoder's widths (5 for llama-vision, 9
+    for zamba2) in float32.  Returns (flash launches of the prefills,
     {tag: timing} of the flash shapes, the per-config numbers)."""
     import torch
     from repro_torch.launch.steps import build_serve_step
@@ -2345,22 +2418,29 @@ def phase_lm_zoo(seed: int, smi, reps: int = 3):
             res.update(phase_decode(model, inputs, ZOO_STEPS, ZOO_SLOTS,
                                     ctx=ctx))
         if name in ZOO_FLASH_SHAPES:
-            q, k, v = _layer_qkv(model, inputs, 0)
+            layer = _first_flash_layer(cfg)
+            q, k, v = _layer_qkv(model, inputs, layer)
             shapes[ZOO_FLASH_SHAPES[name]] = _flash_case(
-                f"flash_attention {name} layer 0", q, k, v,
-                cfg.attn_cfg(cfg.layer_kinds[0]))
+                f"flash_attention {name} layer {layer}", q, k, v,
+                cfg.attn_cfg(cfg.layer_kinds[layer]))
             del q, k, v
-        if cfg.family in ("moe", "vlm") or "mla" in cfg.layer_kinds:
-            phase_lm_profile(model, inputs, ZOO_SLOTS, ctx=ctx)
+        if cfg.family in ("moe", "vlm", "hybrid") or \
+                "mla" in cfg.layer_kinds:
+            phase_lm_profile(model, inputs, ZOO_SLOTS, ctx=ctx,
+                             top=20 if cfg.family == "hybrid" else 12)
+        if "mamba" in cfg.layer_kinds:
+            res.update(phase_ssd_share(model, inputs, res["prefill_ms"]))
         results[name] = res
         del model, inputs, ctx
         torch.cuda.empty_cache()
-    log(f"== decode vs prefill at full widths, 4 layers (llama-vision 5), "
-        f"float32 (rtol {LM_RTOL}, atol {LM_ATOL})")
+    log(f"== decode vs prefill at full widths, 4 layers (llama-vision 5, "
+        f"zamba2 9 with SSD chunks of 8), float32 (rtol {LM_RTOL}, atol "
+        f"{LM_ATOL})")
     for name in ZOO:
         if name != "hubert-xlarge":
             results[name]["consistency_err"] = phase_lm_consistency(
-                name, seed, layers=ZOO_CHECK_LAYERS.get(name, 4))
+                name, seed, layers=ZOO_CHECK_LAYERS.get(name, 4),
+                **ZOO_CHECK_OVERRIDES.get(name, {}))
     log(f"  LM zoo phase {time.perf_counter() - t0:.1f} s")
     return launches, shapes, results
 
@@ -2374,19 +2454,34 @@ def _unmasked_pairs(s: int, causal: bool, window):
     return sum(min(q + 1, w) for q in range(s))
 
 
+def _first_flash_layer(cfg) -> int:
+    """The first layer that launches flash_attention in prefill."""
+    from repro_torch.models.lm import FLASH_KINDS
+    return next(i for i, kind in enumerate(cfg.layer_kinds)
+                if kind in FLASH_KINDS)
+
+
 def _layer_qkv(model, tokens, layer: int):
-    """The q, k, v that layer ``layer``'s attention sees in prefill."""
+    """The q, k, v that layer ``layer``'s attention sees in prefill (a
+    ``mamba_shared`` layer's: the shared block's, after the layer's Mamba2
+    part)."""
     import torch
     from repro_torch.models.attention import _project
     from repro_torch.models.lm import _apply_norm, block_fwd
+    from repro_torch.models.mamba2 import mamba2_fwd
     cfg = model.cfg
     kinds = cfg.layer_kinds
     with torch.inference_mode():
         x = model._embed(tokens)
         pos = torch.arange(x.shape[1], device=x.device)
         for i in range(layer):
-            x = block_fwd(kinds[i], model.layers[i], x, cfg, positions=pos)[0]
+            x = block_fwd(kinds[i], model.layers[i], x, cfg, positions=pos,
+                          shared=model.shared_attn)[0]
         p = model.layers[layer]
+        if kinds[layer] == "mamba_shared":
+            x = x + mamba2_fwd(p["mamba"], _apply_norm(p["ln1"], x, cfg),
+                               cfg.mamba_cfg())[0]
+            p = model.shared_attn
         h = _apply_norm(p["ln1"], x, cfg)
         q, k, v = _project(p["attn"], h, cfg.attn_cfg(kinds[layer]), pos)
     # clones outside inference mode: flex_attention is compiled on them

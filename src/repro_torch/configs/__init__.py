@@ -3,12 +3,13 @@
 Port of ``repro/configs``.  ``get_config(name)`` returns the full published
 config, ``reduced(name)`` a small config of the same family for CPU tests,
 ``input_specs(cfg, shape)`` the concrete shape and dtype of every input of
-a (arch x shape) cell.  Eight of the reference's ten architectures are
+a (arch x shape) cell.  Nine of the reference's ten architectures are
 registered: gemma2-9b, the dense stablelm-1.6b and codeqwen1.5-7b, the
 encoder hubert-xlarge (frame-embedding inputs), the MoE deepseek-moe-16b
-and moonshot-v1-16b-a3b, minicpm3-4b (MLA) and llama-3.2-vision-11b
-(cross-attention over an image context).  zamba2-7b and xlstm-350m need
-blocks the port does not run yet (ROADMAP A3).
+and moonshot-v1-16b-a3b, minicpm3-4b (MLA), llama-3.2-vision-11b
+(cross-attention over an image context) and the hybrid zamba2-7b (Mamba2
+layers and a shared attention block).  xlstm-350m needs blocks the port
+does not run yet (ROADMAP A3).
 """
 
 from __future__ import annotations
@@ -21,9 +22,10 @@ from repro_torch.models.lm import ArchConfig, block_cache_shapes
 
 from . import (codeqwen1_5_7b, deepseek_moe_16b, gemma2_9b, hubert_xlarge,
                llama3_2_vision_11b, minicpm3_4b, moonshot_v1_16b_a3b,
-               stablelm_1_6b)
+               stablelm_1_6b, zamba2_7b)
 
 _MODULES = {
+    "zamba2-7b": zamba2_7b,
     "gemma2-9b": gemma2_9b,
     "codeqwen1.5-7b": codeqwen1_5_7b,
     "stablelm-1.6b": stablelm_1_6b,
@@ -34,7 +36,7 @@ _MODULES = {
     "deepseek-moe-16b": deepseek_moe_16b,
 }
 #: the reference's other architectures, not registered yet
-NOT_PORTED = ("zamba2-7b", "xlstm-350m")
+NOT_PORTED = ("xlstm-350m",)
 
 ARCH_NAMES = tuple(_MODULES)
 
@@ -86,7 +88,8 @@ def input_specs(cfg: ArchConfig, shape: str, batch: Optional[int] = None,
     * prefill_* -> {tokens [, ctx]}
     * decode_* / long_* -> {token, pos, caches [, ctx]}: ``pos`` is a
       Python int (shape ()), ``caches`` a list of each layer's
-      {name: (shape, dtype)} (None for a cross-attention layer)
+      {name: (shape, dtype)}, nested as the cache (None for a
+      cross-attention layer)
 
     Audio and encoder-only models (hubert) take precomputed frame
     embeddings ``(b, s, d_model)`` in the model's type for ``tokens`` and

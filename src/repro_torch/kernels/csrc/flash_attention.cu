@@ -30,16 +30,19 @@
 //   last refills it with the tile STAGES on, so loads run ahead of the
 //   products.  Per key tile a warpgroup runs S = Q K^T by wgmma with both
 //   operands in shared memory (swizzled as TMA lays them out: 128-byte
-//   rows at D = 64, 128 and 256, 64-byte at D = 32, 32-byte at D = 80),
+//   rows at D = 64, 128 and 256, 64-byte at D = 32, 32-byte at D = 80 and
+//   112),
 //   the soft-cap, mask and online softmax on the S fragment in registers,
 //   and O += P V by wgmma with P in registers (the accumulator layout of S
 //   is the A-operand layout of P) and V read from shared memory as an
 //   MN-major operand.  The two warpgroups run independently, so one's
 //   softmax overlaps the other's products.  Shared memory at D = 256: Q
 //   64 KiB + 2 stages x (K + V) 64 KiB = 192 KiB; at D = 80: 20 KiB + 4 x
-//   20 KiB.  P V is one m64nDk16 product per 16 keys (V's subtiles are its
-//   MN atoms; m64n80k16 at D = 80, 40 accumulators a thread).  D = 80 is
-//   not padded: Q K^T takes five k16 steps, one per 16-column subtile.
+//   20 KiB; at D = 112: 28 KiB + 4 stages x 28 KiB = 140 KiB.  P V is one
+//   m64nDk16 product per 16 keys (V's subtiles are its MN atoms; m64n80k16
+//   at D = 80, 40 accumulators a thread; m64n112k16 at D = 112, 56).
+//   D = 80 and D = 112 are not padded: Q K^T takes five and seven k16
+//   steps, one per 16-column subtile.
 //   There is no producer warp: ptxas compiles the whole kernel under its
 //   launch bound's register cap (168 a thread at 384 threads, and also at
 //   288, which it rounds up to whole warpgroups) whatever setmaxnreg grants
@@ -85,7 +88,8 @@
 // 989 TFLOP/s of dense bf16 tensor-core work; at gemma2-9b's prefill shape
 // (B 2, Hq 16, S 8192, D 256) that is 1.1 ms for a global layer and 0.83 ms
 // for a local one (window 4096); at hubert-xlarge's (B 2, H 16, S 8192,
-// D 80, non-causal) 0.69 ms.  The bytes (q, k, v read once, out written
+// D 80, non-causal) 0.69 ms; at zamba2-7b's shared block (B 2, H 32,
+// S 8192, D 112, causal) 0.97 ms.  The bytes (q, k, v read once, out written
 // once, 0.4 GB) take 0.12 ms: bound by operations.  The hi/lo P costs the
 // tensor-core path 1.5 times that work; the fp32 path runs at 67 TFLOP/s.
 //
@@ -286,7 +290,9 @@ constexpr float kLog2e = 1.4426950408889634f;
 // bytes for W = 64, 64 for W = 32, 32 for W = 16), swizzled by TMA in
 // 8-row atoms.  W is the widest of 64, 32, 16 that divides D: D = 80
 // (hubert-xlarge, 1280 / 16 heads) takes five 16-column subtiles with the
-// 32-byte swizzle, so no column of a tile is padding.
+// 32-byte swizzle, D = 112 (zamba2-7b's shared block, 3584 / 32 heads)
+// seven, so no column of a tile is padding.  STAGES is 4 below D = 256
+// (D = 112: 4 stages of 28 KiB).
 template <int D>
 struct Cfg {
   static_assert(D % 16 == 0, "D must be a multiple of 16");
@@ -490,6 +496,39 @@ __device__ __forceinline__ void wgmma_rs_n80(float (&d)[40], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D (64 x 112, fp32) += A (64 x 16, bf16 in registers) * B (16 x 112, bf16
+// MN-major in shared memory: seven 16-column atoms, 32-byte swizzle).
+__device__ __forceinline__ void wgmma_rs_n112(float (&d)[56], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %61, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55}, "
+      "{%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // D (64 x 128, fp32) += A (64 x 16, bf16 in registers) * B (16 x 128, bf16
 // MN-major in shared memory).
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
@@ -595,6 +634,8 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
     wgmma_rs_n256(o, a, db);
   } else if constexpr (D == 128) {
     wgmma_rs_n128(o, a, db);
+  } else if constexpr (D == 112) {
+    wgmma_rs_n112(o, a, db);
   } else if constexpr (D == 80) {
     wgmma_rs_n80(o, a, db);
   } else if constexpr (D == 64) {
@@ -932,6 +973,8 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
                            window, softcap, st);                          \
     case 80: return fn<80>(q, k, v, out, b, hq, hkv, s, scale, causal,    \
                            window, softcap, st);                          \
+    case 112: return fn<112>(q, k, v, out, b, hq, hkv, s, scale, causal,  \
+                             window, softcap, st);                        \
     case 128: return fn<128>(q, k, v, out, b, hq, hkv, s, scale, causal,  \
                              window, softcap, st);                        \
     case 256: return fn<256>(q, k, v, out, b, hq, hkv, s, scale, causal,  \
@@ -952,9 +995,8 @@ cudaError_t launch(int d, int dtype, const void* q, const void* k,
 
 // q (b, hq, s, d), k and v (b, hkv, s, d), out like q; contiguous, on
 // `device`, of one type: dtype 0 float32 (the SIMT kernel), 1 bfloat16 (the
-// tensor-core kernel; pointers 16-byte aligned).  d is 32, 64, 80, 128 or
-// 256;
-// hq a multiple of hkv.  scale is 1/sqrt(d) as float (the bf16 kernel
+// tensor-core kernel; pointers 16-byte aligned).  d is 32, 64, 80, 112, 128
+// or 256; hq a multiple of hkv.  scale is 1/sqrt(d) as float (the bf16 kernel
 // rounds it to bf16); window <= 0 means no window, softcap <= 0 no
 // soft-cap.  Returns cudaGetLastError() or the first error met.
 extern "C" int flash_attention_launch(const void* q, const void* k,

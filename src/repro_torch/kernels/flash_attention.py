@@ -44,7 +44,7 @@ from .fp_ray import _check_cuda
 
 NEG_INF = -1e30
 #: head dims the kernel is compiled for
-HEAD_DIMS = (32, 64, 80, 128, 256)
+HEAD_DIMS = (32, 64, 80, 112, 128, 256)
 #: bytes of float32 scores the plain version holds per query chunk
 SCORE_BYTES = 1 << 30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}

@@ -77,7 +77,9 @@ def build_serve_step(cfg: ArchConfig, shape: str = "decode_32k", *,
     """``fn(token, pos, caches, ctx=None) -> (logits, caches)``: one
     decode step of tokens (B, 1) at position ``pos`` on caches from
     ``model.init_cache(batch, seq)``, updated in place (the reference
-    donates them); a VLM takes its image context ``ctx`` at every step.
+    donates them; a Mamba2 layer's cache is nested, its conv states and
+    float32 state, and a ``mamba_shared`` layer's also holds its shared-block
+    K/V); a VLM takes its image context ``ctx`` at every step.
     An encoder-only config has no decode step: it raises with the cell's
     skip reason."""
     reason = cell_skip_reason(cfg, shape) if cfg.encoder_only else None

@@ -1,5 +1,5 @@
-"""The LM side of the port: attention, MLA, cross-attention and MoE blocks
-on one device.
+"""The LM side of the port: attention, MLA, cross-attention, MoE and
+Mamba2 blocks on one device.
 
 * :mod:`.common` — norms, rotary embedding, init;
 * :mod:`.attention` — grouped-query attention (prefill on the
@@ -9,11 +9,14 @@ on one device.
 * :mod:`.ffn` — gated and plain MLPs;
 * :mod:`.moe` — the mixture-of-experts FFN (top-k routing with a capacity
   per expert, shared experts, the load-balance loss);
+* :mod:`.mamba2` — the Mamba2 block (the chunked SSD for prefill, the
+  recurrent update on a float32 state for decode), in plain ops as the
+  reference;
 * :mod:`.perf` — the reference's perf-variant flags;
 * :mod:`.lm` — ``ArchConfig``, the blocks, the ``LM`` module and
   ``load_reference_params``.
 
-Mamba2 and xLSTM are not ported yet (ROADMAP A3).
+xLSTM is not ported yet (ROADMAP A3).
 """
 
 from . import moe  # noqa: F401

@@ -1,5 +1,5 @@
-"""The composable LM, for the attention, MLA, cross-attention and MoE
-blocks, on one device.
+"""The composable LM, for the attention, MLA, cross-attention, MoE and
+Mamba2 blocks, on one device.
 
 Port of ``repro/models/lm.py``.  An architecture is a repeating pattern of
 typed blocks plus an optional prelude.  The reference stacks each pattern
@@ -19,14 +19,21 @@ Block kinds ported:
 ``mla``          multi-head latent attention + FFN (minicpm3)
 ``xattn``        gated cross-attention over patch embeddings + FFN
                  (llama-vision)
+``mamba``        pre-norm Mamba2 block (zamba2)
+``mamba_shared`` a Mamba2 block followed by zamba2's *shared* attention
+                 block, an ``attn`` block whose one parameter set,
+                 ``LM.shared_attn``, every ``mamba_shared`` layer calls
 
-The Mamba2 and xLSTM kinds (``mamba``, ``mamba_shared``, ``mlstm``,
-``slstm``) raise ``NotImplementedError`` (ROADMAP A3).
+The xLSTM kinds (``mlstm``, ``slstm``) raise ``NotImplementedError``
+(ROADMAP A3).
 Caches: each GQA layer owns ``{"k", "v", "pos"}``, sliding-window layers a
 ring of ``min(window, s_max)`` slots; each MLA layer owns the latent
 ``{"kv_lat", "k_rope", "pos"}``; a cross-attention layer has none (its
 slot in the list is ``None``: it re-projects the context every step, as
-the reference).  Audio models (hubert) take float frame embeddings
+the reference); a Mamba2 layer owns ``{"conv": {"x", "B", "C"}, "ssm"}``
+(the last conv inputs and the float32 state), a ``mamba_shared`` layer
+``{"mamba": <that>, "shared": {"k", "v", "pos"}}``, its own K/V cache for
+its call of the shared block.  Audio models (hubert) take float frame embeddings
 (B, S, d_model) where the others take token ids; a model with
 cross-attention layers (llama-vision) also takes the image context ``ctx``
 (B, n_ctx_tokens, d_model), precomputed patch embeddings (the reference's
@@ -46,27 +53,38 @@ from torch import nn
 from ..core.device import DeviceLike, resolve_device
 from . import attention as attn_mod
 from . import ffn as ffn_mod
+from . import mamba2 as mamba_mod
 from . import moe as moe_mod
 from .attention import AttnConfig, MLAConfig
 from .common import dense_init, embed_init, layer_norm, rms_norm
 from .ffn import FFNConfig
+from .mamba2 import Mamba2Config
 from .moe import MoEConfig
 
 #: block kinds that attend by GQA (the ones that launch flash_attention in
 #: prefill)
 ATTN_KINDS = ("attn", "attn_local", "attn_global", "attn_bidir", "dense",
               "moe")
+#: block kinds that launch flash_attention once a prefill: the GQA kinds
+#: and zamba2's ``mamba_shared``, which calls the shared attention block
+#: (MLA and cross-attention run in plain ops, as the reference)
+FLASH_KINDS = ATTN_KINDS + ("mamba_shared",)
 #: every block kind the port runs
-PORTED_KINDS = ATTN_KINDS + ("mla", "xattn")
+PORTED_KINDS = ATTN_KINDS + ("mla", "xattn", "mamba", "mamba_shared")
 #: block kinds of the reference that the port does not run yet
-NOT_PORTED_KINDS = ("mamba", "mamba_shared", "mlstm", "slstm")
+NOT_PORTED_KINDS = ("mlstm", "slstm")
+
+
+def flash_layers(cfg: "ArchConfig") -> int:
+    """flash_attention's launches a prefill: the layers of a
+    ``FLASH_KINDS`` kind."""
+    return sum(kind in FLASH_KINDS for kind in cfg.layer_kinds)
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     """The reference's ``ArchConfig``, field for field, with ``dtype`` a
-    torch dtype.  The SSM fields are carried so that config files copy
-    over; their blocks are not ported yet."""
+    torch dtype."""
     name: str
     family: str                 # dense | moe | hybrid | ssm | audio | vlm
     n_layers: int
@@ -154,6 +172,11 @@ class ArchConfig:
                          self.n_experts, self.top_k, self.n_shared,
                          activation=self.activation)
 
+    def mamba_cfg(self) -> Mamba2Config:
+        return Mamba2Config(self.d_model, d_state=self.ssm_state or 64,
+                            head_dim=self.mamba_head_dim,
+                            chunk=self.ssd_chunk)
+
     def param_count(self) -> int:
         """Parameter count, from shapes alone (a model on the meta
         device)."""
@@ -191,6 +214,10 @@ def init_block(gen: Optional[torch.Generator], kind: str, cfg: ArchConfig,
                device=None) -> Dict[str, Any]:
     _check_kind(kind)
     dt = cfg.dtype
+    if kind in ("mamba", "mamba_shared"):       # the shared block is LM's
+        return {"ln1": _norm_init(cfg, dt, device),
+                "mamba": mamba_mod.init_mamba2(gen, cfg.mamba_cfg(), dt,
+                                               device)}
     if kind == "mla":
         attn = attn_mod.init_mla(gen, cfg.mla_cfg(), dt, device)
     elif kind == "xattn":
@@ -232,6 +259,13 @@ def _attn_then_ffn(p, x: torch.Tensor, a: torch.Tensor, cfg: ArchConfig,
     return x + f, aux
 
 
+def _need_shared(shared):
+    if shared is None:
+        raise ValueError("a mamba_shared block needs the shared attention "
+                         "block's parameters (LM.shared_attn)")
+    return shared
+
+
 def _need_ctx(ctx):
     if ctx is None:
         raise ValueError("a cross-attention block needs the image context "
@@ -241,14 +275,21 @@ def _need_ctx(ctx):
 
 def block_fwd(kind: str, p, x: torch.Tensor, cfg: ArchConfig,
               positions: Optional[torch.Tensor] = None, moe_stats=None,
-              ctx: Optional[torch.Tensor] = None
+              ctx: Optional[torch.Tensor] = None, shared=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence block.  Returns (x, aux): the MoE aux loss of a
     ``moe`` block, a float32 zero otherwise.  ``moe_stats``: see
     :func:`repro_torch.models.moe.moe_fwd`; ``ctx``: the image context of
-    an ``xattn`` block (read by no other kind)."""
+    an ``xattn`` block; ``shared``: the shared attention block of a
+    ``mamba_shared`` block (each read by no other kind)."""
     _check_kind(kind)
     h = _apply_norm(p["ln1"], x, cfg)
+    if kind in ("mamba", "mamba_shared"):
+        x = x + mamba_mod.mamba2_fwd(p["mamba"], h, cfg.mamba_cfg())[0]
+        if kind == "mamba_shared":      # the shared block is an attn block
+            x = block_fwd("attn", _need_shared(shared), x, cfg,
+                          positions=positions)[0]
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
     if kind == "mla":
         a = attn_mod.mla_fwd(p["attn"], h, cfg.mla_cfg(), positions=positions)
     elif kind == "xattn":
@@ -264,13 +305,24 @@ def block_fwd(kind: str, p, x: torch.Tensor, cfg: ArchConfig,
 
 
 def block_decode(kind: str, p, x: torch.Tensor, cache, cfg: ArchConfig,
-                 pos: int, ctx: Optional[torch.Tensor] = None):
+                 pos: int, ctx: Optional[torch.Tensor] = None, shared=None):
     """Single-token step.  Returns (x, cache); an ``xattn`` block attends
-    over ``ctx`` anew and has no cache (None in, None out)."""
+    over ``ctx`` anew and has no cache (None in, None out); a
+    ``mamba_shared`` block calls ``shared`` on its own ``cache["shared"]``."""
     _check_kind(kind)
     if kind == "attn_bidir":
         raise ValueError("an encoder block has no decode step")
     h = _apply_norm(p["ln1"], x, cfg)
+    if kind in ("mamba", "mamba_shared"):
+        mcache = cache["mamba"] if kind == "mamba_shared" else cache
+        m, mcache = mamba_mod.mamba2_decode(p["mamba"], h, mcache,
+                                            cfg.mamba_cfg())
+        x = x + m
+        if kind == "mamba_shared":
+            x, scache = block_decode("attn", _need_shared(shared), x,
+                                     cache["shared"], cfg, pos)
+            return x, {"mamba": mcache, "shared": scache}
+        return x, mcache
     if kind == "mla":
         a, cache = attn_mod.mla_decode(p["attn"], h, cache, cfg.mla_cfg(),
                                        pos)
@@ -284,14 +336,27 @@ def block_decode(kind: str, p, x: torch.Tensor, cache, cfg: ArchConfig,
 
 
 def block_cache_shapes(kind: str, cfg: ArchConfig, batch: int, s_max: int
-                       ) -> Optional[Dict[str, Tuple[Tuple[int, ...], Any]]]:
-    """``{name: (shape, dtype)}`` of one layer's decode cache; None for a
-    cross-attention layer, which has none."""
+                       ) -> Optional[Dict[str, Any]]:
+    """``{name: (shape, dtype)}`` of one layer's decode cache, nested as the
+    cache (a Mamba2 layer's ``conv``, a ``mamba_shared`` layer's ``mamba``
+    and ``shared``); None for a cross-attention layer, which has none."""
     _check_kind(kind)
     if kind == "attn_bidir":
         raise ValueError("an encoder block has no decode cache")
     if kind == "xattn":
         return None
+    if kind in ("mamba", "mamba_shared"):
+        mc = cfg.mamba_cfg()
+        w1 = mc.conv_width - 1
+        mamba = {"conv": {"x": ((batch, w1, mc.d_inner), cfg.dtype),
+                          "B": ((batch, w1, mc.d_state), cfg.dtype),
+                          "C": ((batch, w1, mc.d_state), cfg.dtype)},
+                 "ssm": ((batch, mc.n_heads, mc.head_dim, mc.d_state),
+                         torch.float32)}
+        if kind == "mamba":
+            return mamba
+        return {"mamba": mamba,
+                "shared": block_cache_shapes("attn", cfg, batch, s_max)}
     if kind == "mla":
         return {"kv_lat": ((batch, s_max, cfg.kv_lora_rank), cfg.dtype),
                 "k_rope": ((batch, s_max, cfg.qk_rope_dim), cfg.dtype),
@@ -305,14 +370,19 @@ def block_cache_zeros(kind: str, cfg: ArchConfig, batch: int, s_max: int,
                       device=None) -> Optional[Dict[str, torch.Tensor]]:
     """Empty decode cache for one layer: zeros, every slot's position -1
     (None for a cross-attention layer).  Sliding-window layers get a ring
-    of ``min(window, s_max)`` slots."""
+    of ``min(window, s_max)`` slots; a Mamba2 state is float32."""
     shapes = block_cache_shapes(kind, cfg, batch, s_max)
     if shapes is None:
         return None
-    cache = {n: torch.zeros(shp, dtype=dt, device=device)
-             for n, (shp, dt) in shapes.items()}
-    cache["pos"].fill_(-1)
-    return cache
+
+    def zeros(tree):
+        out = {n: zeros(v) if isinstance(v, dict) else
+               torch.zeros(v[0], dtype=v[1], device=device)
+               for n, v in tree.items()}
+        if "pos" in out:
+            out["pos"].fill_(-1)
+        return out
+    return zeros(shapes)
 
 
 # --------------------------------------------------------------------------
@@ -349,7 +419,9 @@ class LM(nn.Module):
     ``generator`` (a ``torch.Generator`` on that device; seed 0 when None):
     truncated-normal fan-in weights, N(0, 0.02^2) embeddings, zero norm
     scales, as the reference.  On the CUDA device, attention runs the
-    hand-written kernel."""
+    hand-written kernel.  A model with ``mamba_shared`` layers holds the
+    shared attention block once, as ``shared_attn``; every such layer calls
+    it."""
 
     def __init__(self, cfg: ArchConfig, device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None):
@@ -369,6 +441,11 @@ class LM(nn.Module):
         self.layers = nn.ModuleList(
             ParamTree(init_block(gen, kind, cfg, dev))
             for kind in cfg.layer_kinds)
+        # zamba2's shared attention block, an ``attn`` block: one parameter
+        # set for every mamba_shared layer (the reference's top-level
+        # ``shared_attn``)
+        self.shared_attn = (ParamTree(init_block(gen, "attn", cfg, dev))
+                            if "mamba_shared" in cfg.pattern else None)
         if not cfg.tie_embed:
             self.lm_head = nn.Parameter(
                 dense_init(gen, (cfg.vocab, cfg.d_model), 1, dt, dev),
@@ -437,7 +514,8 @@ class LM(nn.Module):
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for kind, p in zip(cfg.layer_kinds, self.layers):
             x, aux = block_fwd(kind, p, x, cfg, positions=positions,
-                               moe_stats=moe_stats, ctx=ctx)
+                               moe_stats=moe_stats, ctx=ctx,
+                               shared=self.shared_attn)
             aux_total = aux_total + aux
         hidden = _apply_norm(self.final_norm, x, cfg)
         return (hidden, aux_total) if return_aux else hidden
@@ -477,7 +555,7 @@ class LM(nn.Module):
         ctx = self._ctx(ctx, x.shape[0])
         for i, (kind, p) in enumerate(zip(cfg.layer_kinds, self.layers)):
             x, caches[i] = block_decode(kind, p, x, caches[i], cfg, pos,
-                                        ctx=ctx)
+                                        ctx=ctx, shared=self.shared_attn)
         x = _apply_norm(self.final_norm, x, cfg)
         return self.logits(x), caches
 
@@ -513,12 +591,15 @@ def load_reference_params(tree: Dict[str, Any], cfg: ArchConfig,
     pattern position over the repeats: ``stack/b{i}/...[r]`` is layer
     ``len(prelude) + r * len(pattern) + i`` (for gemma2, repeat r runs b0,
     the local layer, then b1, the global one); ``prelude/p{i}`` is layer
-    i.  Leaves are read by name, so MLA's (``attn.wq_a`` ...) and the
+    i.  Leaves are read by name, so MLA's (``attn.wq_a`` ...), the
     cross-attention's 0-d ``attn.gate`` (stacked to (R,), sliced back to
-    0-d) need nothing of their own.
+    0-d) and the Mamba2 leaves (``mamba.w_z`` ...) need nothing of their
+    own; zamba2's top-level ``shared_attn`` fills the model's one
+    ``shared_attn``.
 
-    Every leaf keeps its own type (the MoE router is float32 in a bf16
-    model, as the reference's), and must have the type of the port's
+    Every leaf keeps its own type (the MoE router, and Mamba2's
+    ``dt_bias``, ``a_log`` and ``d_skip``, are float32 in a bf16 model, as
+    the reference's), and must have the type of the port's
     parameter it fills."""
     dev = resolve_device(device)
     model = LM(cfg, device="meta")

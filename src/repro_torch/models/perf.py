@@ -3,8 +3,11 @@
 Port of ``repro/models/perf.py``: the reference's ``FLAGS`` dict, copied as
 it is.  The model code reads a flag when it runs; a benchmark or a test may
 flip one.  Of these, only ``moe_onehot_dispatch`` is read by a ported
-module (``models/moe.py``); the others belong to blocks the port does not
-run yet (ROADMAP A3) and are carried for them."""
+module (``models/moe.py``).  ``mla_seq_parallel`` and
+``mamba_head_constraints`` only pick a sharding in the reference, so no
+module of the port reads them (one device); ``mlstm_chunked`` and
+``remat_save_collectives`` belong to xLSTM and training, not ported yet
+(ROADMAP A3)."""
 
 FLAGS = {
     # mLSTM: chunked query processing with static causal block skipping

@@ -29,7 +29,7 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_plain)
 from repro_torch.launch.steps import build_prefill_step
-from repro_torch.models.lm import ATTN_KINDS, LM
+from repro_torch.models.lm import LM, flash_layers
 
 pytestmark = pytest.mark.cuda
 
@@ -153,9 +153,8 @@ def test_mla_and_xattn_on_the_card_match_the_cpu(cuda, name):
     with torch.inference_mode():
         kernels.reset_counters()
         got = card.prefill(tok.cuda(), on_card(ctx))
-        n_gqa = sum(k in ATTN_KINDS for k in cfg.layer_kinds)
         assert kernels.counters()["flash_attention"] == {
-            "launches": n_gqa, "plain_calls": 0}
+            "launches": flash_layers(cfg), "plain_calls": 0}
         torch.testing.assert_close(got.cpu(), cpu.prefill(tok, ctx),
                                    **LM_TOL)
         torch.testing.assert_close(card(tok.cuda(), on_card(ctx)).cpu(),

@@ -192,20 +192,20 @@ def test_param_count_equals_reference():
 
 def test_unported_architectures_and_blocks_raise():
     with pytest.raises(NotImplementedError, match="A3"):
-        tconfigs.get_config("zamba2-7b")
+        tconfigs.get_config("xlstm-350m")
     assert set(tconfigs.NOT_PORTED) | set(tconfigs.ARCH_NAMES) == \
         set(jconfigs.ARCH_NAMES)
     cfg = dataclasses.replace(tconfigs.reduced("gemma2-9b"),
-                              pattern=("attn", "mamba"))
+                              pattern=("attn", "mlstm"))
     with pytest.raises(NotImplementedError, match="A3"):
         LM(cfg, device="cpu")
 
 
 def test_block_kinds_and_configs():
-    assert set(NOT_PORTED_KINDS) == {"mamba", "mamba_shared", "mlstm",
-                                     "slstm"}
-    assert set(PORTED_KINDS) == set(ATTN_KINDS) | {"mla", "xattn"}
-    assert tconfigs.NOT_PORTED == ("zamba2-7b", "xlstm-350m")
+    assert set(NOT_PORTED_KINDS) == {"mlstm", "slstm"}
+    assert set(PORTED_KINDS) == set(ATTN_KINDS) | {"mla", "xattn", "mamba",
+                                                   "mamba_shared"}
+    assert tconfigs.NOT_PORTED == ("xlstm-350m",)
     assert tconfigs.get_config("minicpm3-4b").layer_kinds == ("mla",) * 62
     kinds = tconfigs.get_config("llama-3.2-vision-11b").layer_kinds
     assert len(kinds) == 40 and kinds.count("xattn") == 8
