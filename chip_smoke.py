@@ -91,9 +91,11 @@ moonshot-v1-16b-a3b (a dense first layer, then MoE layers of 64 experts,
 top 6; head dim 128), minicpm3-4b (62 MLA layers: latent q and kv, plain
 ops, no kernel), llama-3.2-vision-11b (32 GQA layers of Hq 32 / Hkv 8
 at D 128 and 8 gated cross-attention layers over a seeded image context of
-1600 patch embeddings; the gates, zero at init, set to 0.5) and zamba2-7b
+1600 patch embeddings; the gates, zero at init, set to 0.5), zamba2-7b
 (81 Mamba2 layers, the chunked SSD in plain ops, and one shared attention
-block of 32 heads of D 112 called from 13 of them):
+block of 32 heads of D 112 called from 13 of them) and xlstm-350m (18
+mLSTM and 6 sLSTM layers in plain ops, no attention layer, an O(1) decode
+state):
 
 * prefill of 2 x 8192 tokens (prefill_32k cut to S 8192, batch 2), a
   warm-up and 3 timed, every one the same bits, each GQA layer's launch
@@ -111,7 +113,20 @@ block of 32 heads of D 112 called from 13 of them):
 * decode-equals-prefill in float32 at 4 layers of each decoder's widths
   (llama-vision: 5, its whole pattern; zamba2: 9, three prelude Mamba2
   layers and one pattern repeat with its shared-block call, SSD chunks of
-  8 so that the prefills span one, two and four chunks).
+  8 so that the prefills span one, two and four chunks; xlstm-350m: one
+  pattern unit, decoded from an empty cache as the reference hands decode
+  a zero mLSTM state).
+
+Then ``phase_train``: ``launch/train.py`` trains xlstm-350m at full width
+and depth on the card (train_4k cut to batch 4 of 4096 tokens, one step;
+remat per pattern unit, the chunked cross-entropy, AdamW on the cosine
+schedule), every loss and gradient norm finite; one pattern unit in
+float32 trains 2 steps on the card and on the CPU from the same weights
+(losses, gradient norms, parameters compared), and a run preempted after
+its 3rd of 4 steps resumes from its checkpoint with the uninterrupted
+losses.  ``flash_attention``'s checks end with its refusal of a gradient
+(the kernel has no backward): a q that requires one raises before any
+launch, and the same call under no_grad runs.
 
 Each path is run with the kernel counters set to 0 just before it and read
 just after, and must have launched the kernels it runs (and called none of
@@ -1986,6 +2001,43 @@ def phase_flash_checks():
     log(f"  {2 * n_cases} cases within band; max |err| "
         + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
         + f"; repeat launches bit-identical; launches by path {paths}")
+    phase_flash_refuses_gradient()
+
+
+def phase_flash_refuses_gradient():
+    """The kernel has no backward: with gradients on, a q that requires a
+    gradient is refused before anything launches (a tensor without a
+    grad_fn would drop the attention's gradient); under no_grad the same
+    call launches and agrees with the plain version."""
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_plain)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v = (torch.randn((2, 8, 512, 128), generator=gen,
+                           device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    q.requires_grad_(True)
+    before = flash_attention_cuda.launches
+    try:
+        flash_attention_cuda(q, k, v)
+    except RuntimeError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("flash_attention_cuda returned a tensor for a q "
+                             "that requires a gradient")
+    if flash_attention_cuda.launches != before:
+        raise AssertionError("the refused call launched the kernel")
+    with torch.no_grad():
+        got = flash_attention_cuda(q, k, v)
+        want = flash_attention_plain(q, k, v)
+    rtol, atol = FLASH_TOL["bfloat16"]
+    if flash_attention_cuda.launches != before + 1 or \
+            outside_band(got, want, rtol, atol):
+        raise AssertionError("flash_attention_cuda under no_grad: "
+                             f"{flash_attention_cuda.launches - before} "
+                             "launches, or outside the band")
+    log(f"  gradient refused with grad mode on (\"{refused[:72]}...\"), no "
+        "launch; under no_grad one launch, within band")
 
 
 def _dropped(causal, window, softcap, s):
@@ -2062,6 +2114,10 @@ def phase_lm_build(name: str, seed: int, smi):
            f"shared attention block called from "
            f"{cfg.layer_kinds.count('mamba_shared')} layers"
            if "mamba" in cfg.layer_kinds else "")
+        + (f", {cfg.layer_kinds.count('mlstm')} mLSTM layers (d_inner "
+           f"{cfg.xlstm_cfg().d_inner} in {cfg.n_heads} heads of "
+           f"{cfg.xlstm_cfg().head_dim}) and {cfg.layer_kinds.count('slstm')} "
+           f"sLSTM layers" if "mlstm" in cfg.layer_kinds else "")
         + f", vocab {cfg.vocab}, {cfg.dtype}")
     gen = torch.Generator(device="cuda").manual_seed(seed)
     torch.cuda.reset_peak_memory_stats()
@@ -2188,7 +2244,11 @@ def phase_decode(model, tokens, steps: int, slots: int, ctx=None):
     peak = torch.cuda.max_memory_allocated() / 2**30
     cache_gib = sum(t.numel() * t.element_size() for c in caches if c
                     for _, t in _leaves(c)) / 2**30
-    log(f"  decode: {steps} steps at batch {b} on {slots} slots (decode_32k "
+    where = (f"on {slots} slots" if any(
+        name.split(".")[-1] == "pos" for c in caches if c
+        for name, _ in _leaves(c))
+        else "on its O(1) recurrent state (no slots)")
+    log(f"  decode: {steps} steps at batch {b} {where} (decode_32k "
         f"cut to batch {b}): median {med:.2f} ms a step (first "
         f"{times[0]:.2f}, last {times[-1]:.2f}), caches {cache_gib:.2f} GiB, "
         f"peak device memory {peak:.2f} GiB; logits finite; counters all 0")
@@ -2352,11 +2412,46 @@ def phase_ssd_share(model, inputs, prefill_ms: float):
                 mamba_share=n_mamba * block_ms / prefill_ms)
 
 
+def phase_xlstm_share(model, inputs, prefill_ms: float):
+    """An xLSTM model's layers timed alone (CUDA events around the call
+    after a warm-up, median of 3 for the mLSTM, one call for the sLSTM:
+    its host loop leaves the device idle between its launches, so this is
+    its wall time too) on the prefill's input: mLSTM layer 0 and the first
+    sLSTM layer, each block with its pre-norm; times their layer counts,
+    against the prefill's median wall time."""
+    import torch
+    from repro_torch.models.lm import block_fwd
+    cfg = model.cfg
+    kinds = cfg.layer_kinds
+    bsz, s = inputs.shape[:2]
+    out = {}
+    with torch.inference_mode():
+        x = model._embed(inputs)
+        for kind in ("mlstm", "slstm"):
+            i = kinds.index(kind)
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            ms = cuda_ms(lambda: block_fwd(kind, model.layers[i], x, cfg),
+                         reps=3 if kind == "mlstm" else 1)
+            out[kind] = (ms, kinds.count(kind),
+                         (torch.cuda.max_memory_allocated() - base) / 2**30)
+    del x
+    torch.cuda.empty_cache()
+    log(f"  layers alone at {bsz} x {s}: " + "; ".join(
+        f"{kind} {ms:.2f} ms (transient {gib:.2f} GiB) x {n} = "
+        f"{n * ms:.1f} ms, {100 * n * ms / prefill_ms:.1f} % of the "
+        f"prefill's {prefill_ms:.1f} ms" for kind, (ms, n, gib) in
+        out.items()))
+    return {f"{kind}_ms": ms for kind, (ms, _, _) in out.items()} | {
+        f"{kind}_share": n * ms / prefill_ms
+        for kind, (ms, n, _) in out.items()}
+
+
 #: the configs of the zoo, run after gemma2-9b, one at a time: dense, MoE,
-#: MLA (minicpm3), VLM (llama-vision) and hybrid (zamba2)
+#: MLA (minicpm3), VLM (llama-vision), hybrid (zamba2) and xLSTM
 ZOO = ("stablelm-1.6b", "codeqwen1.5-7b", "hubert-xlarge",
        "deepseek-moe-16b", "moonshot-v1-16b-a3b", "minicpm3-4b",
-       "llama-3.2-vision-11b", "zamba2-7b")
+       "llama-3.2-vision-11b", "zamba2-7b", "xlstm-350m")
 #: layers of each decoder's decode-vs-prefill check: 4, llama-vision's
 #: whole 5-kind pattern (4 GQA layers and a cross-attention layer), and
 #: zamba2's 3 prelude Mamba2 layers and one 6-layer repeat (5 Mamba2
@@ -2374,6 +2469,12 @@ ZOO_CHECK_OVERRIDES = {"zamba2-7b": dict(ssd_chunk=8)}
 ZOO_FLASH_SHAPES = {"hubert-xlarge": "hubert_d80",
                     "llama-3.2-vision-11b": "llama_vision_gqa4_d128",
                     "zamba2-7b": "zamba2_d112"}
+#: the prefill length of a config's profile where it is shorter than the
+#: zoo's: xlstm-350m's 2 x 8192 prefill launches ~0.94 M kernels, whose
+#: profiler bookkeeping took over four minutes of the card machine's host,
+#: so its profile takes 2 x 512 tokens (~60 k kernels) and
+#: phase_xlstm_share times its layers at the full shape
+ZOO_PROFILE_SEQ = {"xlstm-350m": 512}
 #: their cuts: prefill_32k at S 8192 (batch 2 of 32); decode_32k at batch 2
 #: (of 128) on 8192 cache slots (of 32768: moonshot's 25.8 GB cache would
 #: not fit beside its 50.7 GB of weights), 16 steps
@@ -2389,16 +2490,18 @@ def phase_lm_zoo(seed: int, smi, reps: int = 3):
     build_serve_step, hubert's serve step refused; flash_attention timed
     at hubert's D 80 shape, llama-vision's GQA-4 D 128 shape and zamba2's
     D 112 shape; a profiled prefill and 3 decode steps of each MoE, MLA,
-    VLM and hybrid config, and zamba2's SSD timed alone; then decode vs
-    prefill at 4 layers of each decoder's widths (5 for llama-vision, 9
-    for zamba2) in float32.  Returns (flash launches of the prefills,
+    VLM, hybrid and xLSTM config, and zamba2's SSD timed alone; then
+    decode vs prefill at 4 layers of each decoder's widths (5 for
+    llama-vision, 9 for zamba2; xlstm-350m's 4 are one pattern unit) in
+    float32.  Returns (flash launches of the prefills,
     {tag: timing} of the flash shapes, the per-config numbers)."""
     import torch
     from repro_torch.launch.steps import build_serve_step
     t0 = time.perf_counter()
     log(f"== LM zoo: {', '.join(ZOO)}; cuts: prefill_32k at S {ZOO_SEQ} "
         f"and batch 2 (of 32768 x 32), decode_32k at batch 2 (of 128) on "
-        f"{ZOO_SLOTS} cache slots (of 32768), {ZOO_STEPS} steps")
+        f"{ZOO_SLOTS} cache slots (of 32768), {ZOO_STEPS} steps; profiles "
+        f"at S {ZOO_PROFILE_SEQ} where shorter")
     results, shapes, launches = {}, {}, 0
     for name in ZOO:
         model = phase_lm_build(name, seed, smi)
@@ -2424,12 +2527,15 @@ def phase_lm_zoo(seed: int, smi, reps: int = 3):
                 f"flash_attention {name} layer {layer}", q, k, v,
                 cfg.attn_cfg(cfg.layer_kinds[layer]))
             del q, k, v
-        if cfg.family in ("moe", "vlm", "hybrid") or \
+        if cfg.family in ("moe", "vlm", "hybrid", "ssm") or \
                 "mla" in cfg.layer_kinds:
-            phase_lm_profile(model, inputs, ZOO_SLOTS, ctx=ctx,
-                             top=20 if cfg.family == "hybrid" else 12)
+            phase_lm_profile(model, inputs[:, :ZOO_PROFILE_SEQ.get(
+                name, ZOO_SEQ)], ZOO_SLOTS, ctx=ctx,
+                top=20 if cfg.family in ("hybrid", "ssm") else 12)
         if "mamba" in cfg.layer_kinds:
             res.update(phase_ssd_share(model, inputs, res["prefill_ms"]))
+        if "mlstm" in cfg.layer_kinds:
+            res.update(phase_xlstm_share(model, inputs, res["prefill_ms"]))
         results[name] = res
         del model, inputs, ctx
         torch.cuda.empty_cache()
@@ -2443,6 +2549,162 @@ def phase_lm_zoo(seed: int, smi, reps: int = 3):
                 **ZOO_CHECK_OVERRIDES.get(name, {}))
     log(f"  LM zoo phase {time.perf_counter() - t0:.1f} s")
     return launches, shapes, results
+
+
+#: the train phase's cut of train_4k (seq 4096, batch 256): batch 4, one
+#: step at lr 3e-4 (the trainer's warmup of 10 steps).  Steps, not
+#: widths, are cut: a step is 45-103 s of host-bound sLSTM loops (by the
+#: host's speed), and with 3 steps the phase took 179-246 s, with 2 steps
+#: 218 s and the whole script 1094 s of its 1200 s limit
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 4096, 4, 1
+#: the card-vs-CPU and resume checks: one pattern unit of xlstm-350m's
+#: widths (3 mlstm + slstm) in float32, batch 2 of 64 tokens
+TRAIN_CHECK_LAYERS, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 4, 2, 64
+#: losses and gradient norms, card vs CPU and resumed vs uninterrupted
+#: (tests/test_fault_tolerance.py's resume band); parameters card vs CPU
+TRAIN_RTOL, PARAM_RTOL, PARAM_ATOL = 1e-4, 1e-3, 1e-5
+
+
+def _unit_model(cfg, seed: int, device: str):
+    """A model of ``cfg`` drawn on the CPU from ``seed`` (the same weights
+    for either device), moved to ``device``."""
+    import torch
+    from repro_torch.models.lm import LM
+    model = LM(cfg, device="cpu",
+               generator=torch.Generator().manual_seed(seed))
+    return model.to(device)
+
+
+def phase_train(seed: int, smi):
+    """The training path (``launch/train.py``: the token pipeline,
+    ``LM.loss`` with remat per pattern unit, the chunked cross-entropy,
+    AdamW on the cosine schedule, the watchdog) of xlstm-350m at full
+    width and depth on the card, train_4k cut to batch 4 and one step: ms
+    per step, tokens/s, peak memory, every loss and gradient norm finite
+    and every norm > 0, no kernel launched (no attention layer).  Then at
+    one pattern unit in float32: 2 steps on the card against the same 2
+    on the CPU, and a run preempted after its 3rd of 4 steps and resumed
+    from its checkpoint (``CheckpointManager``) against the uninterrupted
+    run."""
+    import dataclasses
+    import math
+    import shutil
+    import torch
+    from repro_torch import configs, kernels
+    from repro_torch.checkpoint import PreemptionGuard
+    from repro_torch.launch.train import train
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("TF32 matmuls are on")
+    t_phase = time.perf_counter()
+    log(f"== train: xlstm-350m at full width and depth (card: {smi}); "
+        f"train_4k cut to seq {TRAIN_SEQ}, batch {TRAIN_BATCH} (of 256), "
+        f"{TRAIN_STEPS} steps at lr 3e-4; remat per pattern unit")
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counters()
+    hist = []
+    model, _, losses = train(
+        "xlstm-350m", steps=TRAIN_STEPS, use_reduced=False, batch=TRAIN_BATCH,
+        seq=TRAIN_SEQ, lr=3e-4, seed=seed, verbose=False, device="cuda",
+        history=hist)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    counts = kernels.counters()
+    if any(c["launches"] or c["plain_calls"] for c in counts.values()):
+        raise AssertionError(f"training ran a kernel or plain version: "
+                             f"{counts}")
+    norms = [h["grad_norm"] for h in hist]
+    ms = [1e3 * h["seconds"] for h in hist]
+    if len(losses) != TRAIN_STEPS or not all(
+            math.isfinite(v) for v in losses + norms) or \
+            not all(g > 0 for g in norms):
+        raise AssertionError(f"train: losses {losses}, grad norms {norms}")
+    n = sum(p.numel() for p in model.parameters())
+    # the first step is cold (its warm-up included): tokens/s is read at a
+    # warm step where the run has one
+    rate = (f"{TRAIN_BATCH * TRAIN_SEQ / ms[-1] * 1e3:.0f} tokens/s at "
+            + ("the last step" if len(ms) > 1 else "the cold step"))
+    log(f"  {n / 1e6:.1f} M parameters; ms per step "
+        f"{[round(m, 1) for m in ms]} (the first cold: its warm-up "
+        f"included), {rate}, peak device memory {peak:.2f} GiB; losses "
+        f"{[round(v, 4) for v in losses]}; grad norms "
+        f"{[round(g, 4) for g in norms]}; counters all 0")
+    del model
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(configs.get_config("xlstm-350m"),
+                              name="xlstm-350m-unit",
+                              n_layers=TRAIN_CHECK_LAYERS,
+                              dtype=torch.float32)
+    kw = dict(batch=TRAIN_CHECK_BATCH,
+              seq=TRAIN_CHECK_SEQ, seed=seed, verbose=False)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        m = _unit_model(cfg, seed + 5, dev)
+        hist = []
+        _, _, unit_losses = train(steps=2, model=m, history=hist, **kw)
+        runs[dev] = (m, unit_losses, [h["grad_norm"] for h in hist])
+    rel = {}
+    for i, what in ((1, "losses"), (2, "grad norms")):
+        got, want = runs["cuda"][i], runs["cpu"][i]
+        rel[what] = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        if rel[what] > TRAIN_RTOL:
+            raise AssertionError(f"train on the card vs the CPU: {what} "
+                                 f"{got} vs {want}")
+    worst = 0.0
+    for (name, a), b in zip(runs["cpu"][0].named_parameters(),
+                            runs["cuda"][0].parameters()):
+        err = (b.detach().cpu() - a.detach()).abs()
+        bad = err > PARAM_ATOL + PARAM_RTOL * a.detach().abs()
+        if bool(bad.any()):
+            raise AssertionError(f"train on the card vs the CPU: {name}, "
+                                 f"{int(bad.sum())} parameters outside "
+                                 f"rtol {PARAM_RTOL} atol {PARAM_ATOL}")
+        worst = max(worst, float(err.max()))
+    log(f"  card vs CPU, {TRAIN_CHECK_LAYERS} float32 layers, batch "
+        f"{TRAIN_CHECK_BATCH} x {TRAIN_CHECK_SEQ}, 2 steps: losses "
+        f"{[round(v, 6) for v in runs['cuda'][1]]} (max rel err "
+        f"{rel['losses']:.2e}), grad norms max rel err "
+        f"{rel['grad norms']:.2e}, parameters max |err| {worst:.2e} (rtol "
+        f"{PARAM_RTOL}, atol {PARAM_ATOL})")
+    del runs
+
+    class TriggerAt(PreemptionGuard):
+        """Reports a preemption from its ``at + 1``-th poll on (one poll
+        a step): the run stops after step ``at``."""
+
+        def __init__(self, at):
+            super().__init__(install_handler=False)
+            self.at, self.count = at, 0
+
+        @property
+        def preempted(self):
+            self.count += 1
+            return self.count > self.at
+
+    ckpt = os.path.join(ROOT, "build", "train_resume")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    kw.update(steps=4)
+    try:
+        _, _, whole = train(model=_unit_model(cfg, seed + 6, "cuda"), **kw)
+        _, _, first = train(model=_unit_model(cfg, seed + 6, "cuda"),
+                            ckpt_dir=ckpt, ckpt_every=2, guard=TriggerAt(2),
+                            **kw)
+        _, _, rest = train(model=_unit_model(cfg, seed + 7, "cuda"),
+                           ckpt_dir=ckpt, ckpt_every=2, **kw)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    resumed = first + rest
+    if len(first) != 3 or len(rest) != 1 or any(
+            abs(a - b) > TRAIN_RTOL * abs(b) for a, b in zip(resumed, whole)):
+        raise AssertionError(f"preempt and resume: {first} + {rest} vs "
+                             f"{whole}")
+    log(f"  preempted after step 3 of 4 and resumed from its checkpoint: "
+        f"losses {[round(v, 6) for v in resumed]} vs uninterrupted "
+        f"{[round(v, 6) for v in whole]} (rtol {TRAIN_RTOL}); bit-equal: "
+        f"{resumed == whole}")
+    torch.cuda.empty_cache()
+    log(f"  train phase {time.perf_counter() - t_phase:.1f} s")
 
 
 def _unmasked_pairs(s: int, causal: bool, window):
@@ -3150,6 +3412,7 @@ def main(argv=None) -> int:
     phase_lm_consistency("gemma2-9b", args.seed, n=96, at=(31, 32, 63, 95),
                          window=32)
     zoo_launches, zoo_shapes, _ = phase_lm_zoo(args.seed, smi)
+    phase_train(args.seed, smi)
     flash_row["launches"] += zoo_launches
     for tag, timing in zoo_shapes.items():
         _add_flash_shape(flash_row, tag, timing)

@@ -3,13 +3,13 @@
 Port of ``repro/configs``.  ``get_config(name)`` returns the full published
 config, ``reduced(name)`` a small config of the same family for CPU tests,
 ``input_specs(cfg, shape)`` the concrete shape and dtype of every input of
-a (arch x shape) cell.  Nine of the reference's ten architectures are
+a (arch x shape) cell.  All ten of the reference's architectures are
 registered: gemma2-9b, the dense stablelm-1.6b and codeqwen1.5-7b, the
 encoder hubert-xlarge (frame-embedding inputs), the MoE deepseek-moe-16b
 and moonshot-v1-16b-a3b, minicpm3-4b (MLA), llama-3.2-vision-11b
-(cross-attention over an image context) and the hybrid zamba2-7b (Mamba2
-layers and a shared attention block).  xlstm-350m needs blocks the port
-does not run yet (ROADMAP A3).
+(cross-attention over an image context), the hybrid zamba2-7b (Mamba2
+layers and a shared attention block) and xlstm-350m (mLSTM and sLSTM
+blocks).
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ from repro_torch.models.lm import ArchConfig, block_cache_shapes
 
 from . import (codeqwen1_5_7b, deepseek_moe_16b, gemma2_9b, hubert_xlarge,
                llama3_2_vision_11b, minicpm3_4b, moonshot_v1_16b_a3b,
-               stablelm_1_6b, zamba2_7b)
+               stablelm_1_6b, xlstm_350m, zamba2_7b)
 
 _MODULES = {
     "zamba2-7b": zamba2_7b,
@@ -34,26 +34,20 @@ _MODULES = {
     "llama-3.2-vision-11b": llama3_2_vision_11b,
     "moonshot-v1-16b-a3b": moonshot_v1_16b_a3b,
     "deepseek-moe-16b": deepseek_moe_16b,
+    "xlstm-350m": xlstm_350m,
 }
-#: the reference's other architectures, not registered yet
-NOT_PORTED = ("xlstm-350m",)
+#: the reference's architectures not registered yet: none
+NOT_PORTED: Tuple[str, ...] = ()
 
 ARCH_NAMES = tuple(_MODULES)
 
 
-def _module(name: str):
-    if name in NOT_PORTED:
-        raise NotImplementedError(f"{name} is not ported to PyTorch yet "
-                                  "(ROADMAP A3)")
-    return _MODULES[name]
-
-
 def get_config(name: str) -> ArchConfig:
-    return _module(name).CONFIG
+    return _MODULES[name].CONFIG
 
 
 def reduced(name: str) -> ArchConfig:
-    return _module(name).reduced()
+    return _MODULES[name].reduced()
 
 
 # --------------------------------------------------------------------------

@@ -19,7 +19,9 @@ keys have one length (self-attention, as every caller in the reference).
   type alone: bfloat16 runs the tensor-core kernel (wgmma on bf16
   operands with fp32 accumulation, TMA loads of K and V into a ring of
   stages, P·V on a bf16 hi/lo pair of P), float32 the SIMT kernel on the
-  fp32 units.  A launch that fails raises; nothing falls back;
+  fp32 units.  A launch that fails raises; nothing falls back.  It has
+  no backward: with gradients on, a q, k or v that requires a gradient is
+  refused (ROADMAP A3.3);
 * :func:`flash_attention_plain` is the same function in plain PyTorch, a
   dense softmax as ``kernels/ref.py::flash_attention_ref`` (the reference's
   oracle), in query chunks whose score block stays near
@@ -138,7 +140,18 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          softcap: Optional[float] = None) -> torch.Tensor:
     """Launch the CUDA attention kernel of q's type (the tensor-core one
     for bfloat16, the SIMT one for float32) on CUDA ``q``, ``k``, ``v``;
-    see :func:`flash_attention_plain` for the contract."""
+    see :func:`flash_attention_plain` for the contract.
+
+    The kernel has no backward: with gradients on and any of q, k, v
+    requiring one, it raises instead of returning a tensor that autograd
+    cannot differentiate (nothing runs in its place)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention_cuda has no backward kernel yet (ROADMAP A3.3, "
+            "the flash_attention backward): it cannot return a gradient for "
+            "q, k or v; run attention layers under torch.no_grad() or "
+            "inference_mode on the card, or train on the CPU, where the "
+            "plain version is differentiable")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_cuda(t, name)
     _check(q, k, v, window, softcap)

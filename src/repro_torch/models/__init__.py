@@ -1,7 +1,8 @@
-"""The LM side of the port: attention, MLA, cross-attention, MoE and
-Mamba2 blocks on one device.
+"""The LM side of the port: attention, MLA, cross-attention, MoE, Mamba2
+and xLSTM blocks on one device.
 
-* :mod:`.common` — norms, rotary embedding, init;
+* :mod:`.common` — norms, rotary embedding, init, the chunked
+  cross-entropy;
 * :mod:`.attention` — grouped-query attention (prefill on the
   ``flash_attention`` kernel, decode on a ring cache), MLA (prefill in
   the expanded form, decode in the weight-absorbed form on the latent
@@ -12,11 +13,12 @@ Mamba2 blocks on one device.
 * :mod:`.mamba2` — the Mamba2 block (the chunked SSD for prefill, the
   recurrent update on a float32 state for decode), in plain ops as the
   reference;
+* :mod:`.xlstm` — the mLSTM (stabilised parallel form for prefill, the
+  recurrent matrix state for decode) and sLSTM (a recurrence over time)
+  blocks, in plain ops as the reference;
 * :mod:`.perf` — the reference's perf-variant flags;
-* :mod:`.lm` — ``ArchConfig``, the blocks, the ``LM`` module and
-  ``load_reference_params``.
-
-xLSTM is not ported yet (ROADMAP A3).
+* :mod:`.lm` — ``ArchConfig``, the blocks, the ``LM`` module (with its
+  training loss) and ``load_reference_params``.
 """
 
 from . import moe  # noqa: F401

@@ -1,8 +1,8 @@
-"""Shared building blocks of the LM: norms, rotary embedding, init.
+"""Shared building blocks of the LM: norms, rotary embedding, init, the
+chunked cross-entropy.
 
 Port of ``repro/models/common.py`` for one device: there are no sharding
-rules (``ShardingRules`` is a mesh concept), and the chunked cross-entropy
-belongs to training, which is not ported yet (ROADMAP A3).  Random init
+rules (``ShardingRules`` is a mesh concept).  Random init
 draws from an explicit ``torch.Generator`` with the reference's
 distributions; the bits differ from ``jax.random``'s, so parity tests carry
 weights across with :func:`repro_torch.models.lm.load_reference_params`.
@@ -85,3 +85,35 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     sin = torch.sin(ang).to(x.dtype)
     x1, x2 = x.chunk(2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+# --------------------------------------------------------------------------
+# loss
+# --------------------------------------------------------------------------
+
+def softmax_xent_chunked(x: torch.Tensor, emb: torch.Tensor,
+                         labels: torch.Tensor, chunk: int = 512,
+                         softcap: float = 0.0) -> torch.Tensor:
+    """Mean cross-entropy of ``labels`` (B, S) under the logits ``x @
+    emb^T``, with the unembedding fused per sequence chunk of ``chunk``
+    (the whole sequence when S % chunk != 0), so the full (B, S, V) logits
+    never exist at once.  Logits are float32 from float32-cast inputs,
+    soft-capped by ``softcap`` (gemma2's final cap) when it is nonzero;
+    the row max is held constant for the gradient (the reference's
+    ``stop_gradient``).  Returns the float32 sum over the chunks divided
+    by B * S."""
+    b, s, _ = x.shape
+    if s % chunk:
+        chunk = s
+    embf = emb.float()
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, s, chunk):
+        logits = x[:, c0:c0 + chunk].float() @ embf.t()
+        if softcap:
+            logits = softcap * torch.tanh(logits / softcap)
+        m = logits.amax(dim=-1, keepdim=True).detach()
+        lse = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
+        gold = logits.gather(
+            -1, labels[:, c0:c0 + chunk, None].long())[..., 0]
+        total = total + (lse - gold).sum()
+    return total / (b * s)

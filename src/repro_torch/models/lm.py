@@ -1,5 +1,5 @@
-"""The composable LM, for the attention, MLA, cross-attention, MoE and
-Mamba2 blocks, on one device.
+"""The composable LM, for the attention, MLA, cross-attention, MoE, Mamba2
+and xLSTM blocks, on one device.
 
 Port of ``repro/models/lm.py``.  An architecture is a repeating pattern of
 typed blocks plus an optional prelude.  The reference stacks each pattern
@@ -23,9 +23,9 @@ Block kinds ported:
 ``mamba_shared`` a Mamba2 block followed by zamba2's *shared* attention
                  block, an ``attn`` block whose one parameter set,
                  ``LM.shared_attn``, every ``mamba_shared`` layer calls
+``mlstm``        pre-norm mLSTM block (xlstm-350m)
+``slstm``        pre-norm sLSTM block, its gated FFN inside (xlstm-350m)
 
-The xLSTM kinds (``mlstm``, ``slstm``) raise ``NotImplementedError``
-(ROADMAP A3).
 Caches: each GQA layer owns ``{"k", "v", "pos"}``, sliding-window layers a
 ring of ``min(window, s_max)`` slots; each MLA layer owns the latent
 ``{"kv_lat", "k_rope", "pos"}``; a cross-attention layer has none (its
@@ -33,8 +33,11 @@ slot in the list is ``None``: it re-projects the context every step, as
 the reference); a Mamba2 layer owns ``{"conv": {"x", "B", "C"}, "ssm"}``
 (the last conv inputs and the float32 state), a ``mamba_shared`` layer
 ``{"mamba": <that>, "shared": {"k", "v", "pos"}}``, its own K/V cache for
-its call of the shared block.  Audio models (hubert) take float frame embeddings
-(B, S, d_model) where the others take token ids; a model with
+its call of the shared block; an mLSTM layer owns ``{"conv", "C", "n",
+"m"}`` (its last conv inputs and a float32 matrix state), an sLSTM layer
+``{"c", "n", "m", "y"}`` (float32).  Audio models (hubert) take float
+frame embeddings (B, S, d_model) where the others take token ids; a
+model with
 cross-attention layers (llama-vision) also takes the image context ``ctx``
 (B, n_ctx_tokens, d_model), precomputed patch embeddings (the reference's
 stub vision tower).
@@ -48,6 +51,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from ..core.device import DeviceLike, resolve_device
@@ -55,11 +59,14 @@ from . import attention as attn_mod
 from . import ffn as ffn_mod
 from . import mamba2 as mamba_mod
 from . import moe as moe_mod
+from . import xlstm as xlstm_mod
 from .attention import AttnConfig, MLAConfig
-from .common import dense_init, embed_init, layer_norm, rms_norm
+from .common import (dense_init, embed_init, layer_norm, rms_norm,
+                     softmax_xent_chunked)
 from .ffn import FFNConfig
 from .mamba2 import Mamba2Config
 from .moe import MoEConfig
+from .xlstm import XLSTMConfig
 
 #: block kinds that attend by GQA (the ones that launch flash_attention in
 #: prefill)
@@ -70,9 +77,12 @@ ATTN_KINDS = ("attn", "attn_local", "attn_global", "attn_bidir", "dense",
 #: (MLA and cross-attention run in plain ops, as the reference)
 FLASH_KINDS = ATTN_KINDS + ("mamba_shared",)
 #: every block kind the port runs
-PORTED_KINDS = ATTN_KINDS + ("mla", "xattn", "mamba", "mamba_shared")
-#: block kinds of the reference that the port does not run yet
-NOT_PORTED_KINDS = ("mlstm", "slstm")
+PORTED_KINDS = ATTN_KINDS + ("mla", "xattn", "mamba", "mamba_shared",
+                             "mlstm", "slstm")
+#: block kinds of the reference that the port does not run yet: none
+NOT_PORTED_KINDS: Tuple[str, ...] = ()
+#: the xLSTM kinds, each a pre-norm block around its layer
+XLSTM_KINDS = ("mlstm", "slstm")
 
 
 def flash_layers(cfg: "ArchConfig") -> int:
@@ -177,6 +187,9 @@ class ArchConfig:
                             head_dim=self.mamba_head_dim,
                             chunk=self.ssd_chunk)
 
+    def xlstm_cfg(self) -> XLSTMConfig:
+        return XLSTMConfig(self.d_model, n_heads=self.n_heads)
+
     def param_count(self) -> int:
         """Parameter count, from shapes alone (a model on the meta
         device)."""
@@ -184,9 +197,6 @@ class ArchConfig:
 
 
 def _check_kind(kind: str) -> None:
-    if kind in NOT_PORTED_KINDS:
-        raise NotImplementedError(
-            f"block kind {kind!r} is not ported to PyTorch yet (ROADMAP A3)")
     if kind not in PORTED_KINDS:
         raise ValueError(f"unknown block kind {kind!r}")
 
@@ -218,6 +228,11 @@ def init_block(gen: Optional[torch.Generator], kind: str, cfg: ArchConfig,
         return {"ln1": _norm_init(cfg, dt, device),
                 "mamba": mamba_mod.init_mamba2(gen, cfg.mamba_cfg(), dt,
                                                device)}
+    if kind in XLSTM_KINDS:
+        init = (xlstm_mod.init_mlstm if kind == "mlstm"
+                else xlstm_mod.init_slstm)
+        return {"ln1": _norm_init(cfg, dt, device),
+                kind: init(gen, cfg.xlstm_cfg(), dt, device)}
     if kind == "mla":
         attn = attn_mod.init_mla(gen, cfg.mla_cfg(), dt, device)
     elif kind == "xattn":
@@ -290,6 +305,10 @@ def block_fwd(kind: str, p, x: torch.Tensor, cfg: ArchConfig,
             x = block_fwd("attn", _need_shared(shared), x, cfg,
                           positions=positions)[0]
         return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    if kind in XLSTM_KINDS:
+        fwd = xlstm_mod.mlstm_fwd if kind == "mlstm" else xlstm_mod.slstm_fwd
+        x = x + fwd(p[kind], h, cfg.xlstm_cfg())[0]
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
     if kind == "mla":
         a = attn_mod.mla_fwd(p["attn"], h, cfg.mla_cfg(), positions=positions)
     elif kind == "xattn":
@@ -323,6 +342,11 @@ def block_decode(kind: str, p, x: torch.Tensor, cache, cfg: ArchConfig,
                                      cache["shared"], cfg, pos)
             return x, {"mamba": mcache, "shared": scache}
         return x, mcache
+    if kind in XLSTM_KINDS:
+        dec = (xlstm_mod.mlstm_decode if kind == "mlstm"
+               else xlstm_mod.slstm_decode)
+        m, cache = dec(p[kind], h, cache, cfg.xlstm_cfg())
+        return x + m, cache
     if kind == "mla":
         a, cache = attn_mod.mla_decode(p["attn"], h, cache, cfg.mla_cfg(),
                                        pos)
@@ -357,6 +381,16 @@ def block_cache_shapes(kind: str, cfg: ArchConfig, batch: int, s_max: int
             return mamba
         return {"mamba": mamba,
                 "shared": block_cache_shapes("attn", cfg, batch, s_max)}
+    if kind == "mlstm":
+        xc = cfg.xlstm_cfg()
+        h, pd = xc.n_heads, xc.head_dim
+        return {"conv": ((batch, xc.conv_width - 1, xc.d_inner), cfg.dtype),
+                "C": ((batch, h, pd, pd), torch.float32),
+                "n": ((batch, h, pd), torch.float32),
+                "m": ((batch, h), torch.float32)}
+    if kind == "slstm":
+        return {key: ((batch, cfg.d_model), torch.float32)
+                for key in ("c", "n", "m", "y")}
     if kind == "mla":
         return {"kv_lat": ((batch, s_max, cfg.kv_lora_rank), cfg.dtype),
                 "k_rope": ((batch, s_max, cfg.qk_rope_dim), cfg.dtype),
@@ -369,8 +403,9 @@ def block_cache_shapes(kind: str, cfg: ArchConfig, batch: int, s_max: int
 def block_cache_zeros(kind: str, cfg: ArchConfig, batch: int, s_max: int,
                       device=None) -> Optional[Dict[str, torch.Tensor]]:
     """Empty decode cache for one layer: zeros, every slot's position -1
-    (None for a cross-attention layer).  Sliding-window layers get a ring
-    of ``min(window, s_max)`` slots; a Mamba2 state is float32."""
+    and an xLSTM state's m -1e30 (None for a cross-attention layer).
+    Sliding-window layers get a ring of ``min(window, s_max)`` slots; a
+    Mamba2 or xLSTM state is float32."""
     shapes = block_cache_shapes(kind, cfg, batch, s_max)
     if shapes is None:
         return None
@@ -381,6 +416,8 @@ def block_cache_zeros(kind: str, cfg: ArchConfig, batch: int, s_max: int,
                for n, v in tree.items()}
         if "pos" in out:
             out["pos"].fill_(-1)
+        if "m" in out:
+            out["m"].fill_(xlstm_mod.M_INIT)
         return out
     return zeros(shapes)
 
@@ -392,7 +429,8 @@ def block_cache_zeros(kind: str, cfg: ArchConfig, batch: int, s_max: int,
 class ParamTree(nn.Module):
     """A nested dict of tensors as a module, read as the reference reads
     its pytrees (``p["attn"]["wq"]``).  The tensors become parameters that
-    need no gradient: the port serves, it does not train yet."""
+    need no gradient, for serving; a trainer turns gradients on with the
+    model's ``requires_grad_()``."""
 
     def __init__(self, tree: Dict[str, Any]):
         super().__init__()
@@ -411,8 +449,8 @@ class ParamTree(nn.Module):
 
 
 class LM(nn.Module):
-    """The model: ``forward``, ``logits``, ``prefill``, ``init_cache``,
-    ``decode_step``.
+    """The model: ``forward``, ``logits``, ``loss``, ``prefill``,
+    ``init_cache``, ``decode_step``.
 
     Built on ``device`` (the current CUDA device when None, which raises
     without one; pass ``device="cpu"`` for the CPU) with weights drawn from
@@ -421,7 +459,11 @@ class LM(nn.Module):
     scales, as the reference.  On the CUDA device, attention runs the
     hand-written kernel.  A model with ``mamba_shared`` layers holds the
     shared attention block once, as ``shared_attn``; every such layer calls
-    it."""
+    it.  The parameters need no gradient until ``requires_grad_()`` (the
+    trainer's step builder calls it); the CUDA attention kernel has no
+    backward and refuses a gradient, so on the card only models without
+    flash-launching layers (:func:`flash_layers` 0: xlstm-350m, minicpm3)
+    train."""
 
     def __init__(self, cfg: ArchConfig, device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None):
@@ -432,7 +474,6 @@ class LM(nn.Module):
         if generator is None and dev.type != "meta":
             generator = torch.Generator(device=dev).manual_seed(0)
         self.cfg = cfg
-        self.device = dev
         gen, dt = generator, cfg.dtype
         self.embed = nn.Parameter(
             embed_init(gen, (cfg.vocab, cfg.d_model), dt, dev),
@@ -450,6 +491,11 @@ class LM(nn.Module):
             self.lm_head = nn.Parameter(
                 dense_init(gen, (cfg.vocab, cfg.d_model), 1, dt, dev),
                 requires_grad=False)
+
+    @property
+    def device(self) -> torch.device:
+        """The device the parameters lie on (it follows ``.to()``)."""
+        return self.embed.device
 
     # ---- forward -----------------------------------------------------------
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -498,27 +544,61 @@ class LM(nn.Module):
 
     def forward(self, tokens: torch.Tensor,
                 ctx: Optional[torch.Tensor] = None, return_aux: bool = False,
-                moe_stats: Optional[Dict[str, Any]] = None):
+                moe_stats: Optional[Dict[str, Any]] = None,
+                remat: bool = False):
         """Full-sequence pass: the final-normed hidden states (B, S, D) of
         token ids (B, S) or frame embeddings (B, S, d_model), with the
         image context ``ctx`` (B, n_ctx_tokens, d_model) of a model with
         cross-attention layers (required there, else ignored); with
-        ``return_aux``, (hidden, the MoE aux loss summed over the layers in
-        order, float32).  (The reference also returns its decode caches;
-        the port's prefill needs none.)  ``moe_stats``: see
-        :func:`repro_torch.models.moe.moe_fwd`."""
+        ``return_aux``, (hidden, the MoE aux loss, float32, summed as the
+        reference sums it: the prelude's layers, then each pattern unit's
+        sum).  (The reference also returns its decode caches; the port's
+        prefill needs none.)  ``moe_stats``: see
+        :func:`repro_torch.models.moe.moe_fwd`.  ``remat`` recomputes each
+        pattern unit in the backward pass instead of keeping its
+        activations (``torch.utils.checkpoint``, as the reference's
+        ``jax.checkpoint(unit)``; the prelude is kept); it acts only where
+        gradients are on."""
         cfg = self.cfg
         x = self._embed(tokens)
         ctx = self._ctx(ctx, x.shape[0])
         positions = torch.arange(x.shape[1], device=x.device)
-        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-        for kind, p in zip(cfg.layer_kinds, self.layers):
-            x, aux = block_fwd(kind, p, x, cfg, positions=positions,
-                               moe_stats=moe_stats, ctx=ctx,
-                               shared=self.shared_attn)
+        kinds = cfg.layer_kinds
+
+        def run(x, lo: int, hi: int):
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            for i in range(lo, hi):
+                x, a = block_fwd(kinds[i], self.layers[i], x, cfg,
+                                 positions=positions, moe_stats=moe_stats,
+                                 ctx=ctx, shared=self.shared_attn)
+                aux = aux + a
+            return x, aux
+
+        n_pre, n_pat = len(cfg.prelude), len(cfg.pattern)
+        x, aux_total = run(x, 0, n_pre)
+        remat = remat and torch.is_grad_enabled()
+        for lo in range(n_pre, len(kinds), n_pat):
+            if remat:
+                x, aux = torch.utils.checkpoint.checkpoint(
+                    run, x, lo, lo + n_pat, use_reentrant=False)
+            else:
+                x, aux = run(x, lo, lo + n_pat)
             aux_total = aux_total + aux
         hidden = _apply_norm(self.final_norm, x, cfg)
         return (hidden, aux_total) if return_aux else hidden
+
+    def loss(self, tokens: torch.Tensor, labels: torch.Tensor,
+             ctx: Optional[torch.Tensor] = None,
+             remat: bool = True) -> torch.Tensor:
+        """Mean token cross-entropy of ``labels`` (B, S) against the (tied)
+        embedding, by :func:`.common.softmax_xent_chunked` with the final
+        soft-cap, plus the MoE aux loss: the reference's ``LM.loss``.
+        ``remat`` as :meth:`forward`."""
+        cfg = self.cfg
+        hidden, aux = self.forward(tokens, ctx, return_aux=True, remat=remat)
+        emb = self.embed if cfg.tie_embed else self.lm_head
+        return softmax_xent_chunked(hidden, emb, labels,
+                                    softcap=cfg.final_softcap) + aux
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         """float32 logits against the (tied) embedding, with the final
@@ -597,10 +677,11 @@ def load_reference_params(tree: Dict[str, Any], cfg: ArchConfig,
     own; zamba2's top-level ``shared_attn`` fills the model's one
     ``shared_attn``.
 
-    Every leaf keeps its own type (the MoE router, and Mamba2's
-    ``dt_bias``, ``a_log`` and ``d_skip``, are float32 in a bf16 model, as
-    the reference's), and must have the type of the port's
-    parameter it fills."""
+    Every leaf keeps its own type (the MoE router, Mamba2's ``dt_bias``,
+    ``a_log`` and ``d_skip``, and the xLSTM's ``w_if``, ``b_if``,
+    ``r_heads`` and ``bias`` are float32 in a bf16 model, as the
+    reference's), and must have the type of the port's parameter it
+    fills."""
     dev = resolve_device(device)
     model = LM(cfg, device="meta")
     state: Dict[str, Any] = {}
@@ -625,5 +706,4 @@ def load_reference_params(tree: Dict[str, Any], cfg: ArchConfig,
                          f"model's (got, want): {wrong}")
     state = {k: t.to(dev) for k, t in state.items()}
     model.load_state_dict(state, strict=True, assign=True)
-    model.device = dev
     return model

@@ -170,7 +170,10 @@ def _ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     # intra-chunk: M[t,s] = (C_t . B_s) exp(cum_t - cum_s) 1[s<=t]
     cb = torch.matmul(Cc.to(cdtype), Bc.to(cdtype).transpose(-1, -2))
     cum_h = cum.permute(0, 1, 3, 2)                           # (Bz,nc,H,L)
-    m = (cum_h[..., :, None] - cum_h[..., None, :]).exp_().to(cdtype)
+    # a copy even in float32: autograd keeps exp's output, which the
+    # in-place mask and product below would otherwise overwrite
+    m = (cum_h[..., :, None] - cum_h[..., None, :]).exp_().to(cdtype,
+                                                              copy=True)
     tri = torch.ones((L, L), dtype=torch.bool, device=xh.device).tril()
     m.masked_fill_(~tri, 0)
     m.mul_(cb[:, :, None])                                    # (Bz,nc,H,L,L)

@@ -2,12 +2,12 @@
 
 Port of ``repro/models/perf.py``: the reference's ``FLAGS`` dict, copied as
 it is.  The model code reads a flag when it runs; a benchmark or a test may
-flip one.  Of these, only ``moe_onehot_dispatch`` is read by a ported
-module (``models/moe.py``).  ``mla_seq_parallel`` and
-``mamba_head_constraints`` only pick a sharding in the reference, so no
-module of the port reads them (one device); ``mlstm_chunked`` and
-``remat_save_collectives`` belong to xLSTM and training, not ported yet
-(ROADMAP A3)."""
+flip one.  ``moe_onehot_dispatch`` is read by ``models/moe.py`` and
+``mlstm_chunked`` by ``models/xlstm.py``.  ``mla_seq_parallel``,
+``mamba_head_constraints`` and ``remat_save_collectives`` only pick a
+sharding or what a remat keeps of the collectives in the reference, so no
+module of the port reads them (one device, no collectives; ROADMAP
+A3.4)."""
 
 FLAGS = {
     # mLSTM: chunked query processing with static causal block skipping
