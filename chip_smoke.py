@@ -117,16 +117,28 @@ state):
   pattern unit, decoded from an empty cache as the reference hands decode
   a zero mLSTM state).
 
-Then ``phase_train``: ``launch/train.py`` trains xlstm-350m at full width
-and depth on the card (train_4k cut to batch 4 of 4096 tokens, one step;
-remat per pattern unit, the chunked cross-entropy, AdamW on the cosine
-schedule), every loss and gradient norm finite; one pattern unit in
-float32 trains 2 steps on the card and on the CPU from the same weights
-(losses, gradient norms, parameters compared), and a run preempted after
-its 3rd of 4 steps resumes from its checkpoint with the uninterrupted
-losses.  ``flash_attention``'s checks end with its refusal of a gradient
-(the kernel has no backward): a q that requires one raises before any
-launch, and the same call under no_grad runs.
+Then ``phase_train``, twice: ``launch/train.py`` trains xlstm-350m at full
+width and one pattern unit (4 of its 24 layers, one step: its host-bound
+sLSTM loop made the full-depth step 76-92 s) and stablelm-1.6b at full
+width and depth (train_4k cut to batch 4 of 4096 tokens, 2 steps, cold
+then warm; remat per pattern unit, the chunked cross-entropy, AdamW on
+the cosine schedule); each GQA layer's attention runs the forward kernel
+twice a step (the pass and its remat recompute) and the backward kernels
+(``flash_attention_bwd``: Di, dK/dV, dQ) once, and no plain version runs;
+every loss and gradient norm is finite.  For each config, one pattern
+unit (stablelm: one layer) in float32 trains 2 steps on the card and on
+the CPU from the same weights (losses, gradient norms, parameters
+compared), and a run preempted after its 3rd of 4 steps resumes from its
+checkpoint with the uninterrupted losses.  ``flash_attention``'s checks
+end with ``phase_flash_backward_checks``: dq, dk and dv of the backward
+kernels against autograd of the plain version at every head dim, S 1000
+and 77, GQA 1/2/4, the masks and the cap, float32 and bfloat16, repeat
+backward launches bit-identical, the forward's out unchanged by asking
+for its row statistics, and a negative control; the backward is timed at
+stablelm's train shape (``phase_flash_bwd_times``) against its bound, the
+plain version's autograd and torch's ``scaled_dot_product_attention``
+backward (the yardstick only).  Each phase's seconds are printed, and the
+total.
 
 Each path is run with the kernel counters set to 0 just before it and read
 just after, and must have launched the kernels it runs (and called none of
@@ -190,6 +202,19 @@ CGLS_TOL = 2e-3            # algorithm iterates (tests/test_adjoint.py:199)
 #: is above a typical output at the main shape (|out| ~ 0.02), where it
 #: would not tell a kernel that drops the window from a right one.
 FLASH_TOL = {"float32": (2e-4, 2e-4), "bfloat16": (1e-2, 1e-4)}
+#: flash_attention's gradients (dq, dk, dv of the backward kernels) vs
+#: autograd of the plain version: (rtol, atol), the atol absolute in
+#: float32 and a fraction of the leaf's largest |g| in bfloat16.  float32:
+#: the forward's band (both sum in float32, in other orders; 2.4e-5 at
+#: most at S 1000 on the CPU).  bfloat16: both compute in float32 from the
+#: same bf16 inputs (Di from the float32 out, as autograd) and round each
+#: leaf once, so they differ by about one bf16 ulp (2^-8: rtol 1e-2); the
+#: 1e-3 of the leaf's max covers entries that cancel to near 0 (gradients
+#: scale with d_out and the widths, so a fixed atol would not).
+FLASH_GRAD_TOL = {"float32": (2e-4, 2e-4), "bfloat16": (1e-2, 1e-3)}
+#: the kernel's lse vs torch.logsumexp of the plain scores (the bf16
+#: kernel's exp is ex2.approx and its cap within 2.4e-5 of a score at 50)
+LSE_RTOL, LSE_ATOL = 1e-5, 1e-4
 #: scale of the checks' random q: scores of std 4, so the soft-cap of 50
 #: changes the softmax (at std 1 it moves no output out of the band)
 FLASH_Q_SCALE = 4.0
@@ -2001,43 +2026,161 @@ def phase_flash_checks():
     log(f"  {2 * n_cases} cases within band; max |err| "
         + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
         + f"; repeat launches bit-identical; launches by path {paths}")
-    phase_flash_refuses_gradient()
+    phase_flash_backward_checks()
 
 
-def phase_flash_refuses_gradient():
-    """The kernel has no backward: with gradients on, a q that requires a
-    gradient is refused before anything launches (a tensor without a
-    grad_fn would drop the attention's gradient); under no_grad the same
-    call launches and agrees with the plain version."""
+def _grad_band(want, dtype) -> tuple:
+    """(rtol, atol) of the gradient band (FLASH_GRAD_TOL) around ``want``:
+    in bfloat16 the atol is a share of the leaf's max |g|."""
     import torch
-    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
-                                                     flash_attention_plain)
-    gen = torch.Generator(device="cuda").manual_seed(5)
-    q, k, v = (torch.randn((2, 8, 512, 128), generator=gen,
-                           device="cuda").to(torch.bfloat16)
-               for _ in range(3))
-    q.requires_grad_(True)
-    before = flash_attention_cuda.launches
-    try:
-        flash_attention_cuda(q, k, v)
-    except RuntimeError as e:
-        refused = str(e)
-    else:
-        raise AssertionError("flash_attention_cuda returned a tensor for a q "
-                             "that requires a gradient")
-    if flash_attention_cuda.launches != before:
-        raise AssertionError("the refused call launched the kernel")
+    rtol, atol = FLASH_GRAD_TOL[str(dtype).split(".")[1]]
+    if dtype == torch.bfloat16:
+        atol *= float(want.float().abs().max())
+    return rtol, atol
+
+
+def _plain_grads(q, k, v, d_out, causal, window, softcap):
+    """dq, dk, dv of autograd of the plain version (the oracle)."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    out = flash_attention_plain(*leaves, causal, window, softcap)
+    return torch.autograd.grad(out, leaves, d_out)
+
+
+def _kernel_grads(q, k, v, d_out, causal, window, softcap, repeat=False):
+    """(out, (dq, dk, dv)) of flash_attention_cuda with gradients on (its
+    autograd Function: the forward with lse, the backward kernels); with
+    ``repeat`` the backward runs twice on one graph and must give the same
+    bits."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    out = flash_attention_cuda(*leaves, causal, window, softcap)
+    grads = torch.autograd.grad(out, leaves, d_out, retain_graph=repeat)
+    if repeat:
+        again = torch.autograd.grad(out, leaves, d_out)
+        if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+            raise AssertionError("flash_attention backward: repeat launch "
+                                 "differs")
+    return out.detach(), grads
+
+
+def phase_flash_backward_checks():
+    """The backward kernels (csrc/flash_attention_bwd.cu, through
+    flash_attention_cuda's autograd Function) against autograd of the
+    plain version on the card: every head dim of HEAD_DIMS, S 1000 and 77
+    (77: under two tiles), Hq/Hkv 1, 2 and 4, causal and not, window 64,
+    cap none and 50, float32 and bfloat16, at FLASH_GRAD_TOL; repeat
+    backward launches bit-identical; the forward's out with lse asked for
+    bit-equal to the out without, its lse against torch.logsumexp of the
+    plain scores and its float32 out against the plain one.  At D 256,
+    GQA 2, bfloat16, the plain version's gradients with the window, the
+    causal mask or the cap dropped must fall outside the band."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import (HEAD_DIMS,
+                                                     flash_attention_cuda)
+    heads = ((4, 4), (4, 2), (8, 2))
+    masks = ((True, None, None), (False, None, None), (True, 64, 50.0),
+             (False, 64, None))
+    lengths = (1000, 77)
+    dims = "/".join(map(str, HEAD_DIMS))
+    log(f"== flash_attention backward checks: D {dims}"
+        f", S {'/'.join(map(str, lengths))}, Hq/Hkv 1/2/4, {len(masks)} "
+        f"mask and cap settings, float32 and bfloat16 (bands {FLASH_GRAD_TOL}"
+        "; bf16 atol of the leaf's max |g|)")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    worst = {}
+    n_cases = 0
+    kernels.reset_counters()
+    t0 = time.perf_counter()
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in HEAD_DIMS:
+            for s in lengths:
+                for hq, hkv in heads:
+                    q, k, v, d_out = (
+                        (torch.randn((2, h, s, d), generator=gen,
+                                     device="cuda") * c).to(dtype)
+                        for h, c in ((hq, FLASH_Q_SCALE), (hkv, 1.0),
+                                     (hkv, 1.0), (hq, 1.0)))
+                    for causal, window, cap in masks:
+                        tag = (f"{dtype} D={d} S={s} Hq/Hkv={hq}/{hkv} "
+                               f"causal={causal} window={window} "
+                               f"softcap={cap}")
+                        out, got = _kernel_grads(q, k, v, d_out, causal,
+                                                 window, cap,
+                                                 repeat=s == lengths[-1])
+                        want = _plain_grads(q, k, v, d_out, causal, window,
+                                            cap)
+                        checks = [((str(dtype).split(".")[1], name), a, b,
+                                   _grad_band(b, dtype))
+                                  for name, a, b in zip(("dq", "dk", "dv"),
+                                                        got, want)]
+                        n_cases += 1
+                        if s == lengths[-1]:
+                            checks += _forward_lse_checks(
+                                q, k, v, out, causal, window, cap, tag)
+                        for key, a, b, band in checks:
+                            n_bad = outside_band(a, b, *band)
+                            err = float((a.float() - b.float()).abs().max())
+                            if n_bad or not bool(torch.isfinite(a).all()):
+                                raise AssertionError(
+                                    f"flash_attention {tag}: {key} {n_bad} of "
+                                    f"{a.numel()} outside rtol, atol {band} "
+                                    f"(max |err| {err:.3g})")
+                            worst[key] = max(worst.get(key, 0.0), err)
+                        if s == lengths[-1] and d == 256 and \
+                                dtype == torch.bfloat16 and (hq, hkv) == (4, 2):
+                            _backward_separates(q, k, v, d_out, want,
+                                                causal, window, cap, s, tag)
+    torch.cuda.synchronize()
+    bwd = flash_attention_cuda.bwd_launches
+    expect = n_cases + n_cases // len(lengths)   # the repeats at S 77
+    if bwd != expect:
+        raise AssertionError(f"flash_attention backward launches {bwd}, "
+                             f"expected {expect}")
+    log(f"  {n_cases} cases within band in {time.perf_counter() - t0:.1f} s; "
+        "max |err| " + ", ".join(
+            f"{'/'.join(k) if isinstance(k, tuple) else k} {v:.3g}"
+            for k, v in worst.items())
+        + f"; repeat backward launches bit-identical ({bwd} backward "
+        "launches); out with lse bit-equal to out without")
+
+
+def _forward_lse_checks(q, k, v, out, causal, window, softcap, tag):
+    """The forward with its row statistics: its out, and the out of the
+    autograd Function (``out``), bit-equal to the out without them; the
+    (key, got, want, band) checks of its lse against torch.logsumexp of
+    the plain scores and of its float32 out against the plain one."""
+    import torch
+    from repro_torch.kernels.flash_attention import (
+        _launch_fwd, flash_attention_cuda, flash_attention_plain_lse)
     with torch.no_grad():
-        got = flash_attention_cuda(q, k, v)
-        want = flash_attention_plain(q, k, v)
-    rtol, atol = FLASH_TOL["bfloat16"]
-    if flash_attention_cuda.launches != before + 1 or \
-            outside_band(got, want, rtol, atol):
-        raise AssertionError("flash_attention_cuda under no_grad: "
-                             f"{flash_attention_cuda.launches - before} "
-                             "launches, or outside the band")
-    log(f"  gradient refused with grad mode on (\"{refused[:72]}...\"), no "
-        "launch; under no_grad one launch, within band")
+        plain = flash_attention_cuda(q, k, v, causal, window, softcap)
+        o2, lse, o32 = _launch_fwd(q, k, v, causal, window, softcap, True)
+        _, lse_want, o32_want = flash_attention_plain_lse(
+            q, k, v, causal, window, softcap)
+    if not (torch.equal(o2, plain) and torch.equal(out, plain)):
+        raise AssertionError(f"flash_attention {tag}: out with lse differs "
+                             "from out without")
+    return [("lse", lse, lse_want, (LSE_RTOL, LSE_ATOL)),
+            ("out_f32", o32, o32_want, FLASH_TOL["float32"])]
+
+
+def _backward_separates(q, k, v, d_out, want, causal, window, softcap, s,
+                        tag) -> None:
+    """The gradient band around ``want`` excludes the plain version's
+    gradients with the window, the causal mask or the cap dropped: a
+    backward kernel that dropped one would fail its check."""
+    for what, wrong in _dropped(causal, window, softcap, s):
+        bad = sum(outside_band(w, g, *_grad_band(g, q.dtype)) for w, g in
+                  zip(_plain_grads(q, k, v, d_out, *wrong), want))
+        log(f"  flash_attention backward {tag}: the plain version with {what}"
+            f" puts {bad} gradient entries outside the band")
+        if bad == 0:
+            raise AssertionError(f"flash_attention backward {tag}: the band "
+                                 f"does not tell {what} apart")
 
 
 def _dropped(causal, window, softcap, s):
@@ -2551,15 +2694,19 @@ def phase_lm_zoo(seed: int, smi, reps: int = 3):
     return launches, shapes, results
 
 
-#: the train phase's cut of train_4k (seq 4096, batch 256): batch 4, one
-#: step at lr 3e-4 (the trainer's warmup of 10 steps).  Steps, not
-#: widths, are cut: a step is 45-103 s of host-bound sLSTM loops (by the
-#: host's speed), and with 3 steps the phase took 179-246 s, with 2 steps
-#: 218 s and the whole script 1094 s of its 1200 s limit
-TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 4096, 4, 1
-#: the card-vs-CPU and resume checks: one pattern unit of xlstm-350m's
-#: widths (3 mlstm + slstm) in float32, batch 2 of 64 tokens
-TRAIN_CHECK_LAYERS, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 4, 2, 64
+#: the train phase's cut of train_4k (seq 4096, batch 256): batch 4 at lr
+#: 3e-4 (the trainer's warmup of 10 steps)
+TRAIN_SEQ, TRAIN_BATCH = 4096, 4
+#: per trained config: (layers of its train_4k run, None for all; steps;
+#: layers of the float32 card-vs-CPU and resume checks).  xlstm-350m: one
+#: pattern unit (3 mlstm + slstm) of its 24 layers and one step: a step is
+#: host-bound sLSTM loops (76-92 s cold at full depth, and with 3 steps
+#: the script took 1094 s of its 1200 s), and the depth is what the other
+#: checks of the phase do not need.  stablelm-1.6b: full depth, 2 steps
+#: (cold, then warm).
+TRAIN_RUNS = {"xlstm-350m": (4, 1, 4), "stablelm-1.6b": (None, 2, 1)}
+#: the card-vs-CPU and resume checks: batch 2 of 64 tokens
+TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 2, 64
 #: losses and gradient norms, card vs CPU and resumed vs uninterrupted
 #: (tests/test_fault_tolerance.py's resume band); parameters card vs CPU
 TRAIN_RTOL, PARAM_RTOL, PARAM_ATOL = 1e-4, 1e-3, 1e-5
@@ -2575,17 +2722,51 @@ def _unit_model(cfg, seed: int, device: str):
     return model.to(device)
 
 
-def phase_train(seed: int, smi):
+def _check_train_counts(cfg, steps: int, what: str) -> dict:
+    """The kernel launches since the counters were set to 0 are those
+    ``steps`` train steps of ``cfg`` make on the card: each GQA layer's
+    forward twice a step (the pass and its remat recompute; no config here
+    has a prelude, which is not recomputed), on the tensor-core forward in
+    bf16, and its backward once; nothing else, and no plain version.
+    Returns the forward (``launches``), tensor-core forward (``wgmma``)
+    and backward (``bwd``) launches."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.models.lm import flash_layers
+    if cfg.prelude:
+        raise AssertionError(f"{cfg.name}: a prelude is not recomputed")
+    n = flash_layers(cfg)
+    want = {"launches": 2 * n * steps,
+            "wgmma": 2 * n * steps * (cfg.dtype == torch.bfloat16),
+            "bwd": n * steps}
+    counts = kernels.counters()
+    got = {"launches": counts["flash_attention"]["launches"],
+           "wgmma": flash_attention_cuda.wgmma_launches,
+           "bwd": flash_attention_cuda.bwd_launches}
+    others = {k: c for k, c in counts.items() if k != "flash_attention"}
+    if got != want or any(c["plain_calls"] for c in counts.values()) or \
+            any(c["launches"] for c in others.values()):
+        raise AssertionError(f"{what}: launches {got}, expected {want}; "
+                             f"counters {counts}")
+    return got
+
+
+def phase_train(name: str, seed: int, smi):
     """The training path (``launch/train.py``: the token pipeline,
     ``LM.loss`` with remat per pattern unit, the chunked cross-entropy,
-    AdamW on the cosine schedule, the watchdog) of xlstm-350m at full
-    width and depth on the card, train_4k cut to batch 4 and one step: ms
-    per step, tokens/s, peak memory, every loss and gradient norm finite
-    and every norm > 0, no kernel launched (no attention layer).  Then at
-    one pattern unit in float32: 2 steps on the card against the same 2
-    on the CPU, and a run preempted after its 3rd of 4 steps and resumed
-    from its checkpoint (``CheckpointManager``) against the uninterrupted
-    run."""
+    AdamW on the cosine schedule, the watchdog) of ``name`` at full width
+    on the card, train_4k cut to batch 4 and TRAIN_RUNS' depth and steps:
+    ms per step, tokens/s, peak memory, every loss and gradient norm finite
+    and every norm > 0, and the launches of ``_check_train_counts``
+    (attention's forward kernel and backward kernels; no plain version).
+    Then at TRAIN_RUNS' check depth in float32 (attention on the float32
+    SIMT forward and the float32 backward): 2 steps on the card against the
+    same 2 on the CPU, and a run preempted after its 3rd of 4 steps and
+    resumed from its checkpoint (``CheckpointManager``) against the
+    uninterrupted run; each card run's launches are counted from 0 and
+    checked.  Returns the timings and the flash forward (``fwd``) and
+    backward (``bwd``) launches of the main run alone."""
     import dataclasses
     import math
     import shutil
@@ -2593,48 +2774,59 @@ def phase_train(seed: int, smi):
     from repro_torch import configs, kernels
     from repro_torch.checkpoint import PreemptionGuard
     from repro_torch.launch.train import train
+    from repro_torch.models.lm import LM
     if torch.backends.cuda.matmul.allow_tf32 or \
             torch.get_float32_matmul_precision() != "highest":
         raise AssertionError("TF32 matmuls are on")
+    layers, steps, check_layers = TRAIN_RUNS[name]
+    cfg = configs.get_config(name)
+    depth = "full width and depth"
+    if layers is not None:
+        depth = (f"full width, {layers} of its {cfg.n_layers} layers (one "
+                 "pattern unit)")
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     t_phase = time.perf_counter()
-    log(f"== train: xlstm-350m at full width and depth (card: {smi}); "
-        f"train_4k cut to seq {TRAIN_SEQ}, batch {TRAIN_BATCH} (of 256), "
-        f"{TRAIN_STEPS} steps at lr 3e-4; remat per pattern unit")
+    log(f"== train: {name} at {depth} (card: {smi}); train_4k cut to seq "
+        f"{TRAIN_SEQ}, batch {TRAIN_BATCH} (of 256), {steps} steps at lr "
+        "3e-4; remat per pattern unit")
+    model = LM(cfg, device="cuda",
+               generator=torch.Generator(device="cuda").manual_seed(seed))
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_counters()
     hist = []
-    model, _, losses = train(
-        "xlstm-350m", steps=TRAIN_STEPS, use_reduced=False, batch=TRAIN_BATCH,
-        seq=TRAIN_SEQ, lr=3e-4, seed=seed, verbose=False, device="cuda",
-        history=hist)
+    _, _, losses = train(
+        model=model, steps=steps, batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=3e-4,
+        seed=seed, verbose=False, history=hist)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    counts = kernels.counters()
-    if any(c["launches"] or c["plain_calls"] for c in counts.values()):
-        raise AssertionError(f"training ran a kernel or plain version: "
-                             f"{counts}")
+    got = _check_train_counts(cfg, steps, f"train {name}")
     norms = [h["grad_norm"] for h in hist]
     ms = [1e3 * h["seconds"] for h in hist]
-    if len(losses) != TRAIN_STEPS or not all(
+    if len(losses) != steps or not all(
             math.isfinite(v) for v in losses + norms) or \
             not all(g > 0 for g in norms):
         raise AssertionError(f"train: losses {losses}, grad norms {norms}")
     n = sum(p.numel() for p in model.parameters())
     # the first step is cold (its warm-up included): tokens/s is read at a
     # warm step where the run has one
-    rate = (f"{TRAIN_BATCH * TRAIN_SEQ / ms[-1] * 1e3:.0f} tokens/s at "
-            + ("the last step" if len(ms) > 1 else "the cold step"))
+    rate = TRAIN_BATCH * TRAIN_SEQ / ms[-1] * 1e3
     log(f"  {n / 1e6:.1f} M parameters; ms per step "
         f"{[round(m, 1) for m in ms]} (the first cold: its warm-up "
-        f"included), {rate}, peak device memory {peak:.2f} GiB; losses "
+        f"included), {rate:.0f} tokens/s at "
+        + ("the last step" if len(ms) > 1 else "the cold step")
+        + f", peak device memory {peak:.2f} GiB; losses "
         f"{[round(v, 4) for v in losses]}; grad norms "
-        f"{[round(g, 4) for g in norms]}; counters all 0")
+        f"{[round(g, 4) for g in norms]}; launches {got} "
+        "(forward, tensor-core forward, backward), no plain call")
+    timings = {"ms": ms, "tokens_per_s": rate, "peak_gib": peak,
+               "losses": losses, "grad_norms": norms,
+               "fwd": got["launches"], "bwd": got["bwd"]}
     del model
     torch.cuda.empty_cache()
 
-    cfg = dataclasses.replace(configs.get_config("xlstm-350m"),
-                              name="xlstm-350m-unit",
-                              n_layers=TRAIN_CHECK_LAYERS,
+    cfg = dataclasses.replace(configs.get_config(name),
+                              name=f"{name}-unit", n_layers=check_layers,
                               dtype=torch.float32)
     kw = dict(batch=TRAIN_CHECK_BATCH,
               seq=TRAIN_CHECK_SEQ, seed=seed, verbose=False)
@@ -2642,7 +2834,10 @@ def phase_train(seed: int, smi):
     for dev in ("cpu", "cuda"):
         m = _unit_model(cfg, seed + 5, dev)
         hist = []
+        kernels.reset_counters()
         _, _, unit_losses = train(steps=2, model=m, history=hist, **kw)
+        if dev == "cuda":
+            _check_train_counts(cfg, 2, f"train {cfg.name} on the card")
         runs[dev] = (m, unit_losses, [h["grad_norm"] for h in hist])
     rel = {}
     for i, what in ((1, "losses"), (2, "grad norms")):
@@ -2652,16 +2847,16 @@ def phase_train(seed: int, smi):
             raise AssertionError(f"train on the card vs the CPU: {what} "
                                  f"{got} vs {want}")
     worst = 0.0
-    for (name, a), b in zip(runs["cpu"][0].named_parameters(),
-                            runs["cuda"][0].parameters()):
+    for (pname, a), b in zip(runs["cpu"][0].named_parameters(),
+                             runs["cuda"][0].parameters()):
         err = (b.detach().cpu() - a.detach()).abs()
         bad = err > PARAM_ATOL + PARAM_RTOL * a.detach().abs()
         if bool(bad.any()):
-            raise AssertionError(f"train on the card vs the CPU: {name}, "
+            raise AssertionError(f"train on the card vs the CPU: {pname}, "
                                  f"{int(bad.sum())} parameters outside "
                                  f"rtol {PARAM_RTOL} atol {PARAM_ATOL}")
         worst = max(worst, float(err.max()))
-    log(f"  card vs CPU, {TRAIN_CHECK_LAYERS} float32 layers, batch "
+    log(f"  card vs CPU, {check_layers} float32 layers, batch "
         f"{TRAIN_CHECK_BATCH} x {TRAIN_CHECK_SEQ}, 2 steps: losses "
         f"{[round(v, 6) for v in runs['cuda'][1]]} (max rel err "
         f"{rel['losses']:.2e}), grad norms max rel err "
@@ -2685,13 +2880,21 @@ def phase_train(seed: int, smi):
     ckpt = os.path.join(ROOT, "build", "train_resume")
     shutil.rmtree(ckpt, ignore_errors=True)
     kw.update(steps=4)
+
+    def counted(steps, what, **more):
+        kernels.reset_counters()
+        _, _, losses = train(**kw, **more)
+        _check_train_counts(cfg, steps, f"train {cfg.name}: {what}")
+        return losses
+
     try:
-        _, _, whole = train(model=_unit_model(cfg, seed + 6, "cuda"), **kw)
-        _, _, first = train(model=_unit_model(cfg, seed + 6, "cuda"),
-                            ckpt_dir=ckpt, ckpt_every=2, guard=TriggerAt(2),
-                            **kw)
-        _, _, rest = train(model=_unit_model(cfg, seed + 7, "cuda"),
-                           ckpt_dir=ckpt, ckpt_every=2, **kw)
+        whole = counted(4, "uninterrupted",
+                        model=_unit_model(cfg, seed + 6, "cuda"))
+        first = counted(3, "preempted", model=_unit_model(cfg, seed + 6,
+                                                          "cuda"),
+                        ckpt_dir=ckpt, ckpt_every=2, guard=TriggerAt(2))
+        rest = counted(1, "resumed", model=_unit_model(cfg, seed + 7, "cuda"),
+                       ckpt_dir=ckpt, ckpt_every=2)
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
     resumed = first + rest
@@ -2705,6 +2908,94 @@ def phase_train(seed: int, smi):
         f"{resumed == whole}")
     torch.cuda.empty_cache()
     log(f"  train phase {time.perf_counter() - t_phase:.1f} s")
+    return timings
+
+
+def phase_flash_bwd_times(launches: int):
+    """The backward kernels at stablelm-1.6b's train shape (B 4, H 32, S
+    4096, D 64, causal, bf16; seeded q, k, v, d_out): CUDA-event median of
+    5 of one backward launch, and of the forward with lse (a train step's)
+    and without; the plain version once (autograd of
+    flash_attention_plain: its backward pass, after an untimed forward);
+    the library yardstick, torch's scaled_dot_product_attention forward +
+    backward minus its forward (causal, no cap; never on the path); the
+    bound, 10 D operations per unmasked pair and head at the bf16
+    tensor-core peak against the bytes (q, k, v, d_out, the float32 out
+    and lse read once, dq, dk, dv written once).  The kernel's gradients
+    are held against the plain ones at the band.  Returns the kernels
+    line's row."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (_launch_bwd,
+                                                     _launch_fwd,
+                                                     flash_attention_plain)
+    b, h, s, d = 4, 32, TRAIN_SEQ, 64
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v, d_out = (torch.randn((b, h, s, d), generator=gen,
+                                  device="cuda").to(torch.bfloat16)
+                      for _ in range(4))
+    with torch.no_grad():
+        _, lse, o32 = _launch_fwd(q, k, v, True, None, None, True)
+        # the forward as a train step launches it (with lse and the float32
+        # out), and as prefill does (without)
+        fwd_ms = {lse_: cuda_ms(lambda: _launch_fwd(q, k, v, True, None, None,
+                                                    lse_), reps=5)
+                  for lse_ in (True, False)}
+    run = lambda: _launch_bwd(q, k, v, o32, lse, d_out, True, None, None)
+    ms = cuda_ms(run, reps=5)
+    got = run()
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = flash_attention_plain(*leaves, True, None, None)
+    plain_ms, want = once_ms(lambda: torch.autograd.grad(out, leaves, d_out))
+    del out, leaves
+    err = 0.0
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        n_bad = outside_band(a, w, *_grad_band(w, torch.bfloat16))
+        err = max(err, float((a.float() - w.float()).abs().max()))
+        if n_bad:
+            raise AssertionError(f"flash_attention backward at the train "
+                                 f"shape: {name} {n_bad} outside the band")
+    del got, want
+    torch.cuda.empty_cache()
+    lib_ms = None
+    try:
+        ql, kl, vl = (t.clone().requires_grad_(True) for t in (q, k, v))
+
+        def sdpa_fwd():
+            return F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+
+        def sdpa_fwd_bwd():
+            torch.autograd.grad(sdpa_fwd(), (ql, kl, vl), d_out)
+
+        with torch.no_grad():
+            sdpa_ms = cuda_ms(sdpa_fwd, reps=5)
+        lib_ms = cuda_ms(sdpa_fwd_bwd, reps=5) - sdpa_ms
+        lib_note = f"scaled_dot_product_attention backward {lib_ms:.3f} ms"
+    except Exception as e:   # the yardstick only: the port never calls it
+        lib_note = f"scaled_dot_product_attention none: {type(e).__name__}"
+    pairs = _unmasked_pairs(s, True, None)
+    t_ops = 10 * d * pairs * b * h / PEAK_BF16
+    t_bytes = (q.numel() * 2 * 7 + o32.numel() * 4 + lse.numel() * 4) \
+        / PEAK_BYTES
+    row = _row("flash_attention_bwd",
+               "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+               "src/repro/kernels/flash_attention.py:34", launches, err, ms,
+               plain_ms, t_ops, t_bytes)
+    row["library_ms"] = lib_ms
+    row["bound_share"] = row["bound_ms"] / ms
+    row["tflops"] = 10 * d * pairs * b * h / ms / 1e9
+    row["fwd_lse_ms"] = fwd_ms[True]
+    log(f"  flash_attention forward at that shape: {fwd_ms[True]:.3f} ms "
+        f"with lse and the float32 out (a train step's), {fwd_ms[False]:.3f}"
+        " ms without (prefill's); median of 5")
+    log(f"  flash_attention backward (B {b}, H {h}, S {s}, D {d}, bf16, "
+        f"causal): {ms:.3f} ms (median of 5), plain {plain_ms:.1f} ms, "
+        f"bound {row['bound_ms']:.3f} ms ({row['bound_by']}; "
+        f"{row['tflops']:.1f} TFLOP/s of the 10 D count, "
+        f"{100 * row['bound_share']:.1f} % of the bound); {lib_note}; "
+        f"max |err| vs the plain gradients {err:.3g}; {launches} backward "
+        "launches on the main paths")
+    return row
 
 
 def _unmasked_pairs(s: int, causal: bool, window):
@@ -3314,6 +3605,20 @@ def phase_times(n: int, n_angles: int, ds, launches, per_iter, smi,
     return rows
 
 
+PHASE_SECONDS = {}
+
+
+def timed(name: str, fn, *args, **kw):
+    """``fn(*args, **kw)``, its seconds logged and kept in PHASE_SECONDS
+    (a phase run twice adds up)."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    dt = time.perf_counter() - t0
+    PHASE_SECONDS[name] = PHASE_SECONDS.get(name, 0.0) + dt
+    log(f"[{name}: {dt:.1f} s]")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -3326,62 +3631,68 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
-    smi = phase_environment()
-    phase_build()
+    smi = timed("environment", phase_environment)
+    timed("build", phase_build)
     if args.quick:
-        phase_kernel_checks(64, 48)
-        phase_bp_voxel_checks(64, 48)
-        phase_overflow_checks()
-        phase_tile_checks(64)
-        phase_tv_grad_checks(64)
-        phase_flash_checks()
+        timed("kernel_checks", phase_kernel_checks, 64, 48)
+        timed("bp_voxel_checks", phase_bp_voxel_checks, 64, 48)
+        timed("overflow_checks", phase_overflow_checks)
+        timed("tile_checks", phase_tile_checks, 64)
+        timed("tv_grad_checks", phase_tv_grad_checks, 64)
+        timed("flash_checks", phase_flash_checks)
         log(f"quick run passed in {time.perf_counter() - t_start:.0f}s")
         return 0
-    phase_kernel_checks(128, 96)
-    phase_bp_voxel_checks(128, 96)
-    phase_overflow_checks()
-    phase_tile_checks(64)
-    phase_tv_grad_checks(128)
-    phase_flash_checks()
+    timed("kernel_checks", phase_kernel_checks, 128, 96)
+    timed("bp_voxel_checks", phase_bp_voxel_checks, 128, 96)
+    timed("overflow_checks", phase_overflow_checks)
+    timed("tile_checks", phase_tile_checks, 64)
+    timed("tv_grad_checks", phase_tv_grad_checks, 128)
+    timed("flash_checks", phase_flash_checks)
     n, n_angles = 512, 512
-    ds, x2, c_cgls, per_cgls, x3 = phase_main_plain(n, n_angles, iters=3)
+    mib256 = 256 << 20
+    ds, x2, c_cgls, per_cgls, x3 = timed("main_plain", phase_main_plain, n,
+                                         n_angles, iters=3)
     # kept for phase_dist and phase_stream_devices, in host memory so that
     # the phases between hold what they held before
     x2, x3 = x2.cpu(), x3.cpu()
-    c_cgls_stream, x_stream = phase_main_stream(n, n_angles, ds, x2,
-                                                device_bytes=256 << 20)
-    c_fdk = phase_fdk(n, n_angles, ds)
-    x_sart, c_sart, per_sart = phase_ossart_plain(n, n_angles, ds, iters=2)
-    c_sart_stream = phase_ossart_stream(n, n_angles, ds, x_sart,
-                                        device_bytes=256 << 20)
+    c_cgls_stream, x_stream = timed("main_stream", phase_main_stream, n,
+                                    n_angles, ds, x2, device_bytes=mib256)
+    c_fdk = timed("fdk", phase_fdk, n, n_angles, ds)
+    x_sart, c_sart, per_sart = timed("ossart_plain", phase_ossart_plain, n,
+                                     n_angles, ds, iters=2)
+    c_sart_stream = timed("ossart_stream", phase_ossart_stream, n, n_angles,
+                          ds, x_sart, device_bytes=mib256)
     # kept for phase_autotune's tuned OS-SART, in host memory
     x_sart = x_sart.cpu()
     torch.cuda.empty_cache()
-    first, c_asd, per_asd = phase_asd_pocs_plain(n, n_angles, ds, iters=2)
+    first, c_asd, per_asd = timed("asd_pocs_plain", phase_asd_pocs_plain, n,
+                                  n_angles, ds, iters=2)
     torch.cuda.empty_cache()
-    c_asd_stream = phase_asd_pocs_stream(n, n_angles, ds, first,
-                                         device_bytes=256 << 20)
+    c_asd_stream = timed("asd_pocs_stream", phase_asd_pocs_stream, n,
+                         n_angles, ds, first, device_bytes=mib256)
     del first
     torch.cuda.empty_cache()
-    c_fista, per_fista = phase_fista_plain(n, n_angles, ds, iters=2)
+    c_fista, per_fista = timed("fista_plain", phase_fista_plain, n, n_angles,
+                               ds, iters=2)
     torch.cuda.empty_cache()
-    c_dist = phase_dist(n, n_angles, ds, x3, smi)
+    c_dist = timed("dist", phase_dist, n, n_angles, ds, x3, smi)
     del x3
     torch.cuda.empty_cache()
-    c_dist_tv = phase_dist_tv(n, smi)
+    c_dist_tv = timed("dist_tv", phase_dist_tv, n, smi)
     torch.cuda.empty_cache()
-    c_stream_dev = phase_stream_devices(n, n_angles, ds, x2,
-                                        device_bytes=256 << 20, smi=smi)
+    c_stream_dev = timed("stream_devices", phase_stream_devices, n, n_angles,
+                         ds, x2, device_bytes=mib256, smi=smi)
     torch.cuda.empty_cache()
-    c_serve, solos = phase_serve(n, ds, x_stream, device_bytes=256 << 20,
-                                 smi=smi)
+    c_serve, solos = timed("serve", phase_serve, n, ds, x_stream,
+                           device_bytes=mib256, smi=smi)
     del x_stream
-    c_serve_durable, solo_durable, rel_single = phase_serve_durable(n // 2,
-                                                                    smi)
+    c_serve_durable, solo_durable, rel_single = timed(
+        "serve_durable", phase_serve_durable, n // 2, smi)
     solos.update(solo_durable)
-    c_fleet = phase_fleet(n, ds, solos, rel_single, smi)
+    c_fleet = timed("fleet", phase_fleet, n, ds, solos, rel_single, smi)
     del solos
-    tuned, _ = phase_autotune(n, n_angles, ds, x2, x_sart, 256 << 20, smi)
+    tuned, _ = timed("autotune", phase_autotune, n, n_angles, ds, x2, x_sart,
+                     mib256, smi)
     del x2, x_sart
     torch.cuda.empty_cache()
     runs = (c_cgls, c_cgls_stream, c_fdk, c_sart, c_sart_stream, c_asd,
@@ -3389,36 +3700,50 @@ def main(argv=None) -> int:
             c_serve, c_serve_durable, c_fleet)
     ct_kernels = ("fp_ray", "bp_matched", "bp_voxel", "tv_grad")
     launches = {k: sum(c[k]["launches"] for c in runs) for k in ct_kernels}
-    rows = phase_times(n, n_angles, ds, launches,
-                       {"CGLS": per_cgls, "OS-SART": per_sart,
-                        "ASD-POCS": per_asd, "FISTA": per_fista}, smi,
-                       {name: t[0] for name, t in tuned.items()})
+    rows = timed("times", phase_times, n, n_angles, ds, launches,
+                 {"CGLS": per_cgls, "OS-SART": per_sart,
+                  "ASD-POCS": per_asd, "FISTA": per_fista}, smi,
+                 {name: t[0] for name, t in tuned.items()})
     del ds
     torch.cuda.empty_cache()
     log(f"  CT phases done at {time.perf_counter() - t_start:.0f}s; device "
         f"memory freed to {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-    model = phase_lm_build("gemma2-9b", args.seed, smi)
+    model = timed("lm_build", phase_lm_build, "gemma2-9b", args.seed, smi)
     prompts = _lm_tokens(args.seed, 2, 8192, model.cfg.vocab)
-    gemma_launches = phase_prefill(model, prompts)["launches"]
-    phase_decode(model, prompts, steps=32, slots=32768)
+    gemma_launches = timed("prefill", phase_prefill, model,
+                           prompts)["launches"]
+    timed("decode", phase_decode, model, prompts, steps=32, slots=32768)
     log(f"== flash_attention times at the main path's shape (card: {smi})")
-    flash_row = phase_flash_times(model, prompts, gemma_launches)
+    flash_row = timed("flash_times", phase_flash_times, model, prompts,
+                      gemma_launches)
     rows.append(flash_row)
-    phase_lm_profile(model, prompts, slots=32768)
+    timed("lm_profile", phase_lm_profile, model, prompts, slots=32768)
     del model, prompts
     torch.cuda.empty_cache()
     log(f"== decode vs prefill at gemma2-9b's widths, 4 layers, float32, "
         f"window 32 (rtol {LM_RTOL}, atol {LM_ATOL})")
-    phase_lm_consistency("gemma2-9b", args.seed, n=96, at=(31, 32, 63, 95),
-                         window=32)
-    zoo_launches, zoo_shapes, _ = phase_lm_zoo(args.seed, smi)
-    phase_train(args.seed, smi)
-    flash_row["launches"] += zoo_launches
+    timed("lm_consistency", phase_lm_consistency, "gemma2-9b", args.seed,
+          n=96, at=(31, 32, 63, 95), window=32)
+    zoo_launches, zoo_shapes, _ = timed("lm_zoo", phase_lm_zoo, args.seed,
+                                        smi)
+    train_xlstm = timed("train xlstm-350m", phase_train, "xlstm-350m",
+                        args.seed, smi)
+    train_lm = timed("train stablelm-1.6b", phase_train, "stablelm-1.6b",
+                     args.seed, smi)
+    log(f"== flash_attention backward times at stablelm-1.6b's train shape "
+        f"(card: {smi})")
+    rows.append(timed("flash_bwd_times", phase_flash_bwd_times,
+                      train_xlstm["bwd"] + train_lm["bwd"]))
+    train_fwd = train_xlstm["fwd"] + train_lm["fwd"]
+    flash_row["launches"] += zoo_launches + train_fwd
     for tag, timing in zoo_shapes.items():
         _add_flash_shape(flash_row, tag, timing)
     log(f"  flash_attention launches on the main paths: "
         f"{flash_row['launches']} (gemma2-9b {gemma_launches}, the zoo "
-        f"{zoo_launches})")
+        f"{zoo_launches}, training {train_fwd}); backward launches "
+        f"{rows[-1]['launches']}")
+    log("phase seconds: " + ", ".join(f"{k} {v:.1f}"
+                                      for k, v in PHASE_SECONDS.items()))
     log(f"total {time.perf_counter() - t_start:.0f}s")
     print(smi)
     print(json.dumps({"kernels": rows}))

@@ -9,10 +9,10 @@ counterpart of ``examples/train_lm.py``.
 It runs on the current CUDA device unless ``--device cpu`` is passed.  It
 checkpoints only with ``--ckpt-dir``, and then resumes from the last
 checkpoint in that directory: a run of another size needs another one.  The
-~100M config is a scaled xlstm-350m-family model (the reference's example
-trains a stablelm-family decoder): the port's CUDA attention kernel has no
-backward yet, so on the card only an attention-free model trains.
-``--small`` is a quick look at a tiny size.
+~100M config is the reference example's stablelm-family decoder (8 GQA
+layers of 12 heads of 64); on the card its attention and the attention's
+gradient run the hand-written flash_attention kernels.  ``--small`` is a
+quick look at a tiny size.
 """
 
 import argparse
@@ -32,14 +32,14 @@ def main(argv=None):
     from repro_torch.launch import train as T
     from repro_torch.models.lm import LM, ArchConfig
 
-    # ~100M params: 8 layers (2 units of 3 mLSTM + 1 sLSTM), d=768, tied
-    # 32k vocab
+    # ~100M params: 8 layers, d=768, 32k vocab (the reference example's)
     cfg = ArchConfig(
-        name="xlstm-100m", family="ssm", n_layers=8, d_model=768,
-        n_heads=4, n_kv=4, d_ff=0, vocab=32000,
-        pattern=("mlstm", "mlstm", "mlstm", "slstm"), sub_quadratic=True)
+        name="lm-100m", family="dense", n_layers=8, d_model=768,
+        n_heads=12, n_kv=12, d_ff=3072, vocab=32000, pattern=("attn",),
+        sub_quadratic=False)
     if args.small:
-        cfg = dataclasses.replace(cfg, n_layers=4, d_model=128, vocab=2048)
+        cfg = dataclasses.replace(cfg, n_layers=2, d_model=128, n_heads=4,
+                                  n_kv=4, d_ff=512, vocab=2048)
 
     model = LM(cfg, device=args.device)
     print(f"training {cfg.name}: {cfg.param_count() / 1e6:.1f}M params, "

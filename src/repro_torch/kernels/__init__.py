@@ -6,10 +6,11 @@
   family (``csrc/bp_voxel.cu``);
 * :mod:`.tv_grad` — the gradient of the smoothed TV objective, ASD-POCS's
   regulariser (``csrc/tv_grad.cu``);
-* :mod:`.flash_attention` — FlashAttention-2 forward with GQA, causal and
-  sliding-window masks and the logit soft-cap, the LM prefill's attention
-  (``csrc/flash_attention.cu``: a tensor-core kernel for bfloat16, a SIMT
-  kernel for float32);
+* :mod:`.flash_attention` — FlashAttention-2 with GQA, causal and
+  sliding-window masks and the logit soft-cap, the LM's attention: the
+  forward (``csrc/flash_attention.cu``: a tensor-core kernel for bfloat16,
+  a SIMT kernel for float32) and, for training, its backward
+  (``csrc/flash_attention_bwd.cu``, in a ``torch.autograd.Function``);
 * :mod:`.build` — ``nvcc`` at first use, ``ctypes`` loading;
 * :mod:`.autotune` — the measured tile autotuner of ``fp_ray``,
   ``bp_matched`` and ``bp_voxel`` (each compiled in a few tile
@@ -27,7 +28,9 @@ from typing import Dict
 from . import autotune, ops, ref
 from .bp_matched import bp_matched_cuda, bp_matched_plain
 from .bp_voxel import bp_voxel_cuda, bp_voxel_plain
-from .flash_attention import flash_attention_cuda, flash_attention_plain
+from .flash_attention import (flash_attention_bwd_plain,
+                              flash_attention_cuda, flash_attention_plain,
+                              flash_attention_plain_lse)
 from .fp_ray import fp_ray_cuda, fp_ray_plain
 from .tv_grad import tv_grad_cuda, tv_grad_plain
 
@@ -46,12 +49,16 @@ def reset_counters() -> None:
     for fn in _PLAIN.values():
         fn.calls = 0
     flash_attention_cuda.wgmma_launches = 0
+    flash_attention_cuda.bwd_launches = 0
 
 
 def counters() -> Dict[str, Dict[str, int]]:
     """``{kernel: {"launches": n, "plain_calls": m}}`` since the last
     :func:`reset_counters` (``flash_attention_cuda.wgmma_launches`` says how
-    many of flash_attention's launches took its tensor-core kernel)."""
+    many of flash_attention's forward launches took its tensor-core kernel,
+    ``flash_attention_cuda.bwd_launches`` how many backward launches it
+    made; ``plain_calls`` counts the plain backward and row statistics
+    too)."""
     return {name: {"launches": _LAUNCHES[name].launches,
                    "plain_calls": _PLAIN[name].calls}
             for name in _LAUNCHES}

@@ -36,12 +36,13 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 #: kernel name -> its source under csrc/
 SOURCES = {"fp_ray": "fp_ray.cu", "bp_matched": "bp_matched.cu",
            "bp_voxel": "bp_voxel.cu", "tv_grad": "tv_grad.cu",
-           "flash_attention": "flash_attention.cu"}
+           "flash_attention": "flash_attention.cu",
+           "flash_attention_bwd": "flash_attention_bwd.cu"}
 #: kernel name -> the headers under csrc/ its source includes
 HEADERS = {"fp_ray": ("joseph_common.cuh", "tile_configs.cuh"),
            "bp_matched": ("joseph_common.cuh", "tile_configs.cuh"),
            "bp_voxel": ("tile_configs.cuh",), "tv_grad": (),
-           "flash_attention": ()}
+           "flash_attention": (), "flash_attention_bwd": ()}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -149,14 +150,20 @@ VOXEL_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
 #: eps^2; device, stream
 TV_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_float]
                + [ctypes.c_int, ctypes.c_void_p])
-#: ctypes signature of csrc/flash_attention.cu's entry: q, k, v, out;
-#: b hq hkv s d dtype; scale; causal window; softcap; device, stream
-FLASH_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                  + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_float]
-                  + [ctypes.c_int, ctypes.c_void_p])
+#: the arguments both flash entries take after their pointers: b hq hkv s d
+#: dtype; scale; causal window; softcap; device, stream
+FLASH_TAIL = ([ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 2
+              + [ctypes.c_float] + [ctypes.c_int, ctypes.c_void_p])
+#: ctypes signature of csrc/flash_attention.cu's entry: q, k, v, out, lse
+#: and out_f32 (each null: not written), then the flash tail
+FLASH_ARGTYPES = [ctypes.c_void_p] * 6 + FLASH_TAIL
+#: csrc/flash_attention_bwd.cu's entry: q, k, v, out (float32), lse, d_out,
+#: dq, dk, dv, the Di scratch, then the flash tail
+FLASH_BWD_ARGTYPES = [ctypes.c_void_p] * 10 + FLASH_TAIL
 ARGTYPES = {"fp_ray": FP_RAY_ARGTYPES, "bp_matched": BP_MATCHED_ARGTYPES,
             "bp_voxel": VOXEL_ARGTYPES, "tv_grad": TV_ARGTYPES,
-            "flash_attention": FLASH_ARGTYPES}
+            "flash_attention": FLASH_ARGTYPES,
+            "flash_attention_bwd": FLASH_BWD_ARGTYPES}
 
 
 def entry(name: str):

@@ -14,6 +14,18 @@
 //   online softmax over key tiles in float32: running max m, sum l and
 //   accumulator acc, rescaled by exp(m_prev - m_new) at every tile (:63-70)
 //   out = acc / max(l, 1e-30)     in q's type (:74)
+//   lse = m + log(max(l, 1e-30))  float32, (B, Hq, S): the row's
+//                                 log-sum-exp of its capped, masked scores
+//                                 in natural log, written only when the
+//                                 caller passes a buffer (the training
+//                                 forward; csrc/flash_attention_bwd.cu reads
+//                                 it to form P = exp(s - lse))
+//   out_f32 = acc / max(l, 1e-30) float32, the bf16 kernel's output before
+//                                 its rounding, likewise only on request:
+//                                 the backward's Di = rowsum(d_out * out)
+//                                 takes it, as autograd of the float32
+//                                 softmax does (the float32 kernel's out is
+//                                 that already)
 //
 // Positions are absolute, from 0 for queries and keys alike.  Any S is
 // taken: the tail tiles are masked (a key past S is excluded like a masked
@@ -94,7 +106,10 @@
 // tensor-core path 1.5 times that work; the fp32 path runs at 67 TFLOP/s.
 //
 // No atomics and a fixed order of every sum, so every launch gives the
-// same bits.
+// same bits.  Asking for lse (and out_f32) adds stores after the output's
+// and changes no arithmetic of out: its bits are the same with and without.
+// Both kernels hold m in natural units (the tensor-core one only evaluates
+// exp(x - m) as ex2((x - m) log2 e)), so lse needs no change of base.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -118,8 +133,8 @@ template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ out,
-                     int hq, int hkv, int s, float scale, int causal,
-                     int window, float softcap) {
+                     float* __restrict__ lse, int hq, int hkv, int s,
+                     float scale, int causal, int window, float softcap) {
   static_assert(D % 16 == 0, "D must be a multiple of 16");
   constexpr int LD = D + 4;     // padded row of the Q, K and V tiles
   constexpr int CPT = D / 16;   // output columns per thread
@@ -271,6 +286,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     float* row = out + q_off + (size_t)qi * D;
 #pragma unroll
     for (int c = 0; c < CPT; ++c) row[tx + 16 * c] = acc[i][c] / denom;
+    if (lse != nullptr && tx == 0)
+      lse[(size_t)bh * s + qi] = m[i] + logf(denom);
   }
 }
 
@@ -650,7 +667,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv,
-                    __nv_bfloat16* __restrict__ out, int hq, int hkv, int s,
+                    __nv_bfloat16* __restrict__ out,
+                    float* __restrict__ lse, float* __restrict__ out_f32,
+                    int hq, int hkv, int s,
                     float scale, int causal, int window, float softcap) {
   using C = Cfg<D>;
   constexpr int W = C::W, NSUB = C::NSUB;
@@ -857,10 +876,18 @@ __global__ void __launch_bounds__(kThreads, 1)
     const float denom = fmaxf(l[r], 1e-30f);
     __nv_bfloat16* orow = out + q_off + (size_t)row * D;
 #pragma unroll
-    for (int c8 = 0; c8 < D / 8; ++c8)
+    for (int c8 = 0; c8 < D / 8; ++c8) {
+      const float2 f = make_float2(o[4 * c8 + 2 * r] / denom,
+                                   o[4 * c8 + 2 * r + 1] / denom);
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * c8 + cq) =
-          __floats2bfloat162_rn(o[4 * c8 + 2 * r] / denom,
-                                o[4 * c8 + 2 * r + 1] / denom);
+          __floats2bfloat162_rn(f.x, f.y);
+      if (out_f32 != nullptr)
+        *reinterpret_cast<float2*>(out_f32 + q_off + (size_t)row * D +
+                                   8 * c8 + cq) = f;
+    }
+    // m is the quad's common row maximum, in natural units
+    if (lse != nullptr && (lane & 3) == 0)
+      lse[(size_t)bh * s + row] = m[r] + logf(denom);
   }
 }
 
@@ -880,8 +907,9 @@ cudaError_t use_device(int device) {
 
 template <int D>
 cudaError_t launch_simt(const void* q, const void* k, const void* v,
-                        void* out, int b, int hq, int hkv, int s, float scale,
-                        int causal, int window, float softcap,
+                        void* out, float* lse, float* /* out_f32: out */,
+                        int b, int hq, int hkv, int s,
+                        float scale, int causal, int window, float softcap,
                         cudaStream_t stream) {
   const size_t bytes = simt::smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -890,8 +918,8 @@ cudaError_t launch_simt(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return err;
   const dim3 grid((s + simt::kBQ - 1) / simt::kBQ, b * hq);
   simt::flash_fwd_kernel<D><<<grid, simt::kThreads, bytes, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)out, hq, hkv,
-      s, scale, causal, window, softcap);
+      (const float*)q, (const float*)k, (const float*)v, (float*)out, lse, hq,
+      hkv, s, scale, causal, window, softcap);
   return cudaGetLastError();
 }
 
@@ -942,8 +970,10 @@ cudaError_t make_map(CUtensorMap* map, const void* ptr, int heads, int s,
 
 template <int D>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
-                      int b, int hq, int hkv, int s, float scale, int causal,
-                      int window, float softcap, cudaStream_t stream) {
+                      float* lse, float* out_f32, int b, int hq, int hkv,
+                      int s, float scale,
+                      int causal, int window, float softcap,
+                      cudaStream_t stream) {
   using C = tc::Cfg<D>;
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out)) %
@@ -960,32 +990,32 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
   if (err != cudaSuccess) return err;
   const dim3 grid((s + tc::kBQ - 1) / tc::kBQ, b * hq);
   tc::flash_tc_kernel<D><<<grid, tc::kThreads, C::SMEM, stream>>>(
-      mq, mk, mv, (__nv_bfloat16*)out, hq, hkv, s, scale, causal, window,
-      softcap);
+      mq, mk, mv, (__nv_bfloat16*)out, lse, out_f32, hq, hkv, s, scale, causal,
+      window, softcap);
   return cudaGetLastError();
 }
 
-#define FLASH_DISPATCH_D(fn)                                              \
-  switch (d) {                                                            \
-    case 32: return fn<32>(q, k, v, out, b, hq, hkv, s, scale, causal,    \
-                           window, softcap, st);                          \
-    case 64: return fn<64>(q, k, v, out, b, hq, hkv, s, scale, causal,    \
-                           window, softcap, st);                          \
-    case 80: return fn<80>(q, k, v, out, b, hq, hkv, s, scale, causal,    \
-                           window, softcap, st);                          \
-    case 112: return fn<112>(q, k, v, out, b, hq, hkv, s, scale, causal,  \
-                             window, softcap, st);                        \
-    case 128: return fn<128>(q, k, v, out, b, hq, hkv, s, scale, causal,  \
-                             window, softcap, st);                        \
-    case 256: return fn<256>(q, k, v, out, b, hq, hkv, s, scale, causal,  \
-                             window, softcap, st);                        \
-    default: return cudaErrorInvalidValue;                                \
+#define FLASH_DISPATCH_D(fn)                                            \
+  switch (d) {                                                          \
+    case 32: return fn<32>(q, k, v, out, lse, out_f32, b, hq, hkv, s,   \
+        scale, causal, window, softcap, st);                            \
+    case 64: return fn<64>(q, k, v, out, lse, out_f32, b, hq, hkv, s,   \
+        scale, causal, window, softcap, st);                            \
+    case 80: return fn<80>(q, k, v, out, lse, out_f32, b, hq, hkv, s,   \
+        scale, causal, window, softcap, st);                            \
+    case 112: return fn<112>(q, k, v, out, lse, out_f32, b, hq, hkv, s, \
+        scale, causal, window, softcap, st);                            \
+    case 128: return fn<128>(q, k, v, out, lse, out_f32, b, hq, hkv, s, \
+        scale, causal, window, softcap, st);                            \
+    case 256: return fn<256>(q, k, v, out, lse, out_f32, b, hq, hkv, s, \
+        scale, causal, window, softcap, st);                            \
+    default: return cudaErrorInvalidValue;                              \
   }
 
 cudaError_t launch(int d, int dtype, const void* q, const void* k,
-                   const void* v, void* out, int b, int hq, int hkv, int s,
-                   float scale, int causal, int window, float softcap,
-                   cudaStream_t st) {
+                   const void* v, void* out, float* lse, float* out_f32,
+                   int b, int hq, int hkv, int s, float scale, int causal,
+                   int window, float softcap, cudaStream_t st) {
   if (dtype == 0) FLASH_DISPATCH_D(launch_simt)
   if (dtype == 1) FLASH_DISPATCH_D(launch_tc)
   return cudaErrorInvalidValue;
@@ -995,13 +1025,17 @@ cudaError_t launch(int d, int dtype, const void* q, const void* k,
 
 // q (b, hq, s, d), k and v (b, hkv, s, d), out like q; contiguous, on
 // `device`, of one type: dtype 0 float32 (the SIMT kernel), 1 bfloat16 (the
-// tensor-core kernel; pointers 16-byte aligned).  d is 32, 64, 80, 112, 128
+// tensor-core kernel; pointers 16-byte aligned).  lse: null, or float32
+// (b, hq, s) for each row's log-sum-exp; out_f32: null, or float32 like q
+// for the bfloat16 kernel's output before its rounding (the float32 kernel
+// does not read it).  d is 32, 64, 80, 112, 128
 // or 256; hq a multiple of hkv.  scale is 1/sqrt(d) as float (the bf16 kernel
 // rounds it to bf16); window <= 0 means no window, softcap <= 0 no
 // soft-cap.  Returns cudaGetLastError() or the first error met.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* out, int b, int hq,
-                                      int hkv, int s, int d, int dtype,
+                                      const void* v, void* out, void* lse,
+                                      void* out_f32, int b, int hq, int hkv,
+                                      int s, int d, int dtype,
                                       float scale, int causal, int window,
                                       float softcap, int device,
                                       void* stream) {
@@ -1009,6 +1043,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   if (err != cudaSuccess) return (int)err;
   if (b <= 0 || s <= 0 || hkv <= 0 || hq % hkv != 0)
     return (int)cudaErrorInvalidValue;
-  return (int)launch(d, dtype, q, k, v, out, b, hq, hkv, s, scale, causal,
-                     window, softcap, (cudaStream_t)stream);
+  return (int)launch(d, dtype, q, k, v, out, (float*)lse, (float*)out_f32, b,
+                     hq, hkv, s, scale, causal, window, softcap,
+                     (cudaStream_t)stream);
 }

@@ -11,7 +11,9 @@ the device when the launcher is built.  A call with new angle values hits
 the cache and builds nothing; :func:`cache_info` exposes the counters.
 
 Each wrapper runs the kernel on a CUDA tensor and its plain version on a
-CPU tensor (the reference's ``interpret``).  They take the port's own
+CPU tensor (the reference's ``interpret``); ``flash_attention``'s launcher
+passes gradients through (on the card the kernel's autograd Function, on
+the CPU autograd of the plain version).  They take the port's own
 knobs, not the reference's block sizes, which have no counterpart here:
 
 * ``fp_ray_project``: ``slab_planes`` -> ``config``, an index into

@@ -101,9 +101,10 @@ def build_train_step(cfg: ArchConfig, shape: str = "train_4k", *,
     ``in_specs``: the cell's, cut by ``batch`` / ``seq``), the parameters
     updated in place; 200 warmup steps then cosine decay over
     ``total_steps``, as the reference.  ``opt_state`` starts as
-    ``adamw_init(dict(step.model.named_parameters()))``.  On the card only
-    a model without flash-launching layers trains (the CUDA attention
-    kernel has no backward and refuses a gradient)."""
+    ``adamw_init(dict(step.model.named_parameters()))``.  On the card a
+    GQA layer's gradient comes from the attention backward kernels (one
+    backward launch per layer and step, the forward kernel twice with
+    remat)."""
     lm = _model(cfg, model, device, seed)
     specs = input_specs(cfg, shape, batch=batch, seq=seq)
     step = make_train_step(lm, opt, 200, total_steps, remat)

@@ -4,13 +4,20 @@ async checkpoints, the preemption hook, the straggler watchdog.
 
 Port of ``repro/launch/train.py`` for one device: no mesh, no model axis,
 no ZeRO-1 (ROADMAP A3.4).  It runs on the current CUDA device unless
-``device="cpu"`` (``--device cpu``) is passed.  On the card only a model
-without flash-launching layers trains (xlstm-350m): the CUDA attention
-kernel has no backward and refuses a gradient (ROADMAP A3.3); on the CPU
-every config trains, the plain attention being differentiable.
+``device="cpu"`` (``--device cpu``) is passed.  On the card a GQA layer's
+attention and its gradient run the hand-written kernels (the forward with
+its row statistics, then the backward kernels for dq, dk and dv); on the
+CPU the plain attention runs and autograd differentiates it.  Every config
+trains that fits one device: on one 80 GB card stablelm-1.6b and
+xlstm-350m at full width and depth (the 7B-16B configs need sharding,
+ROADMAP A3.4).
 
-Usage (CPU smoke)::
+Usage::
 
+    # on the card: stablelm-1.6b at full width, train_4k cut to 4 x 4096
+    PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b \\
+        --steps 3 --batch 4 --seq 4096
+    # CPU smoke
     PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-350m \\
         --reduced --steps 50 --batch 8 --seq 128 --device cpu \\
         --ckpt-dir build/ckpt

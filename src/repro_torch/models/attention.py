@@ -12,7 +12,11 @@ dispatches by device, as its other kernels do: :func:`gqa_fwd` calls
 :func:`repro_torch.kernels.ops.flash_attention` (the cached wrapper of
 :func:`repro_torch.kernels.flash_attention.flash_attention`), which launches
 the CUDA kernel on a CUDA tensor and runs the kernel's plain version (a
-chunked dense softmax, the port's ``_sdpa``) on a CPU tensor.  Both
+chunked dense softmax, the port's ``_sdpa``) on a CPU tensor.  Training
+differentiates either: on the card through the kernel's autograd Function,
+whose backward is the hand-written backward kernels (as the reference's
+gradient is XLA's derivative of ``_sdpa``), on the CPU by autograd of the
+plain version.  Both
 reference paths compute that function within the reference's tolerances
 (``tests/test_kernels.py:74-111``), and the CPU tests hold the port against
 both.

@@ -460,10 +460,13 @@ class LM(nn.Module):
     hand-written kernel.  A model with ``mamba_shared`` layers holds the
     shared attention block once, as ``shared_attn``; every such layer calls
     it.  The parameters need no gradient until ``requires_grad_()`` (the
-    trainer's step builder calls it); the CUDA attention kernel has no
-    backward and refuses a gradient, so on the card only models without
-    flash-launching layers (:func:`flash_layers` 0: xlstm-350m, minicpm3)
-    train."""
+    trainer's step builder calls it).  With gradients on, each GQA layer's
+    attention goes through the kernel's ``torch.autograd.Function``: the
+    forward kernel with its row statistics, and the backward kernels for
+    dq, dk and dv (:mod:`repro_torch.kernels.flash_attention`), so every
+    config trains on the card as far as it fits there (stablelm-1.6b at
+    full width and depth on one 80 GB card); remat recomputes the forward
+    kernel in the backward pass."""
 
     def __init__(self, cfg: ArchConfig, device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None):

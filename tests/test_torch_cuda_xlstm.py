@@ -1,11 +1,11 @@
 """xlstm-350m and training on the card: the xLSTM layers at xlstm-350m's
 widths against the same code on the CPU, decode against prefill at one
 pattern unit, two training steps on the card against the CPU, and CUDA
-``flash_attention`` refusing a gradient.
+``flash_attention`` giving a gradient (its backward kernels).
 
-Every test here needs a CUDA device and skips without one; the refusal's
-second half builds the attention kernel (``nvcc``).  The file imports
-nothing of JAX:
+Every test here needs a CUDA device and skips without one; the last
+builds the attention kernels (``nvcc``).  The file imports nothing of
+JAX:
 
     PYTHONPATH=src python -m pytest tests/test_torch_cuda_xlstm.py -q
 
@@ -25,7 +25,8 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.configs import get_config
-from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                 flash_attention_plain)
 from repro_torch.launch.train import train
 from repro_torch.models import perf
 from repro_torch.models import xlstm as tx
@@ -153,18 +154,29 @@ def test_two_train_steps_on_the_card_match_the_cpu(cuda):
                                    atol=1e-5, msg=name)
 
 
-def test_flash_attention_refuses_a_gradient(cuda):
-    """With gradients on, a q that requires one is refused (the kernel has
-    no backward) before anything launches; under no_grad, and with no
-    input requiring a gradient, the kernel runs."""
+def test_flash_attention_gives_a_gradient(cuda):
+    """With gradients on, a q that requires one gets it from the backward
+    kernels (one forward launch with its row statistics, one backward
+    launch), and it agrees with autograd of the plain version; under
+    no_grad, and with no input requiring a gradient, the forward launches
+    alone."""
     q, k, v = (torch.randn((1, 4, 128, 64), device=cuda,
                            dtype=torch.bfloat16) for _ in range(3))
     kernels.reset_counters()
-    with pytest.raises(RuntimeError, match="no backward"):
-        flash_attention_cuda(q.clone().requires_grad_(True), k, v)
-    assert flash_attention_cuda.launches == 0
+    qg = q.clone().requires_grad_(True)
+    out = flash_attention_cuda(qg, k, v)
+    out.float().sum().backward()
+    assert flash_attention_cuda.launches == 1
+    assert flash_attention_cuda.bwd_launches == 1
+    assert qg.grad is not None and qg.grad.dtype == torch.bfloat16
+    qp = q.clone().requires_grad_(True)
+    flash_attention_plain(qp, k, v).float().sum().backward()
+    err = (qg.grad.float() - qp.grad.float()).abs()
+    atol = 1e-3 * float(qp.grad.float().abs().max())
+    assert bool((err <= atol + 1e-2 * qp.grad.float().abs()).all())
     with torch.no_grad():
         out = flash_attention_cuda(q.clone().requires_grad_(True), k, v)
-    assert out.shape == q.shape and flash_attention_cuda.launches == 1
+    assert out.shape == q.shape and out.grad_fn is None
     assert flash_attention_cuda(q, k, v).shape == q.shape
-    assert flash_attention_cuda.launches == 2
+    assert flash_attention_cuda.launches == 3
+    assert flash_attention_cuda.bwd_launches == 1
