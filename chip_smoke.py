@@ -124,17 +124,19 @@ width and depth (train_4k cut to batch 4 of 4096 tokens, 2 steps, cold
 then warm; remat per pattern unit, the chunked cross-entropy, AdamW on
 the cosine schedule); each GQA layer's attention runs the forward kernel
 twice a step (the pass and its remat recompute) and the backward kernels
-(``flash_attention_bwd``: Di, dK/dV, dQ) once, and no plain version runs;
-every loss and gradient norm is finite.  For each config, one pattern
-unit (stablelm: one layer) in float32 trains 2 steps on the card and on
-the CPU from the same weights (losses, gradient norms, parameters
-compared), and a run preempted after its 3rd of 4 steps resumes from its
-checkpoint with the uninterrupted losses.  ``flash_attention``'s checks
+(``flash_attention_bwd``: Di, dK/dV, dQ; in bf16 its tensor-core path)
+once, and no plain version runs; every loss and gradient norm is finite;
+stablelm's next step runs under torch.profiler (device time by kernel).
+For each config, one pattern unit (stablelm: one layer) in float32 trains
+2 steps on the card and on the CPU from the same weights (losses,
+gradient norms, parameters compared), and a run preempted after its 3rd
+of 4 steps resumes from its checkpoint with the uninterrupted losses.  ``flash_attention``'s checks
 end with ``phase_flash_backward_checks``: dq, dk and dv of the backward
 kernels against autograd of the plain version at every head dim, S 1000
-and 77, GQA 1/2/4, the masks and the cap, float32 and bfloat16, repeat
-backward launches bit-identical, the forward's out unchanged by asking
-for its row statistics, and a negative control; the backward is timed at
+and 77, GQA 1/2/4, the masks and the cap, float32 and bfloat16 (the
+bfloat16 ones on the tensor-core kernels), repeat backward launches
+bit-identical, the forward's out unchanged by asking for its row
+statistics, and a negative control; the backward is timed at
 stablelm's train shape (``phase_flash_bwd_times``) against its bound, the
 plain version's autograd and torch's ``scaled_dot_product_attention``
 backward (the yardstick only).  Each phase's seconds are printed, and the
@@ -207,10 +209,11 @@ FLASH_TOL = {"float32": (2e-4, 2e-4), "bfloat16": (1e-2, 1e-4)}
 #: float32 and a fraction of the leaf's largest |g| in bfloat16.  float32:
 #: the forward's band (both sum in float32, in other orders; 2.4e-5 at
 #: most at S 1000 on the CPU).  bfloat16: both compute in float32 from the
-#: same bf16 inputs (Di from the float32 out, as autograd) and round each
-#: leaf once, so they differ by about one bf16 ulp (2^-8: rtol 1e-2); the
-#: 1e-3 of the leaf's max covers entries that cancel to near 0 (gradients
-#: scale with d_out and the widths, so a fixed atol would not).
+#: same bf16 inputs (Di from the float32 out, as autograd; the tensor-core
+#: kernels feed P and dS as bf16 hi/lo pairs, 2^-16 of each weight) and
+#: round each leaf once, so they differ by about one bf16 ulp (2^-8: rtol
+#: 1e-2); the 1e-3 of the leaf's max covers entries that cancel to near 0
+#: (gradients scale with d_out and the widths, so a fixed atol would not).
 FLASH_GRAD_TOL = {"float32": (2e-4, 2e-4), "bfloat16": (1e-2, 1e-3)}
 #: the kernel's lse vs torch.logsumexp of the plain scores (the bf16
 #: kernel's exp is ex2.approx and its cap within 2.4e-5 of a score at 50)
@@ -2071,12 +2074,15 @@ def phase_flash_backward_checks():
     flash_attention_cuda's autograd Function) against autograd of the
     plain version on the card: every head dim of HEAD_DIMS, S 1000 and 77
     (77: under two tiles), Hq/Hkv 1, 2 and 4, causal and not, window 64,
-    cap none and 50, float32 and bfloat16, at FLASH_GRAD_TOL; repeat
-    backward launches bit-identical; the forward's out with lse asked for
-    bit-equal to the out without, its lse against torch.logsumexp of the
-    plain scores and its float32 out against the plain one.  At D 256,
-    GQA 2, bfloat16, the plain version's gradients with the window, the
-    causal mask or the cap dropped must fall outside the band."""
+    cap none and 50, float32 and bfloat16, at FLASH_GRAD_TOL; every
+    bfloat16 backward on the tensor-core kernels (bwd_wgmma_launches) and
+    every float32 one on the SIMT kernels; repeat backward launches
+    bit-identical, and no atomic operation in the backward's source; the
+    forward's out with lse asked for bit-equal to the out without, its lse
+    against torch.logsumexp of the plain scores and its float32 out
+    against the plain one.  At D 256, GQA 2, bfloat16, the plain version's
+    gradients with the window, the causal mask or the cap dropped must
+    fall outside the band."""
     import torch
     from repro_torch import kernels
     from repro_torch.kernels.flash_attention import (HEAD_DIMS,
@@ -2090,9 +2096,15 @@ def phase_flash_backward_checks():
         f", S {'/'.join(map(str, lengths))}, Hq/Hkv 1/2/4, {len(masks)} "
         f"mask and cap settings, float32 and bfloat16 (bands {FLASH_GRAD_TOL}"
         "; bf16 atol of the leaf's max |g|)")
+    src = os.path.join(ROOT, "src", "repro_torch", "kernels", "csrc",
+                       "flash_attention_bwd.cu")
+    with open(src) as f:
+        if "atomic" in f.read():
+            raise AssertionError(f"{src} names an atomic operation")
     gen = torch.Generator(device="cuda").manual_seed(6)
     worst = {}
     n_cases = 0
+    n_bf16 = 0
     kernels.reset_counters()
     t0 = time.perf_counter()
     for dtype in (torch.float32, torch.bfloat16):
@@ -2118,6 +2130,8 @@ def phase_flash_backward_checks():
                                   for name, a, b in zip(("dq", "dk", "dv"),
                                                         got, want)]
                         n_cases += 1
+                        n_bf16 += (1 + (s == lengths[-1])) * (
+                            dtype == torch.bfloat16)
                         if s == lengths[-1]:
                             checks += _forward_lse_checks(
                                 q, k, v, out, causal, window, cap, tag)
@@ -2136,16 +2150,19 @@ def phase_flash_backward_checks():
                                                 causal, window, cap, s, tag)
     torch.cuda.synchronize()
     bwd = flash_attention_cuda.bwd_launches
+    bwd_wgmma = flash_attention_cuda.bwd_wgmma_launches
     expect = n_cases + n_cases // len(lengths)   # the repeats at S 77
-    if bwd != expect:
+    if (bwd, bwd_wgmma) != (expect, n_bf16):
         raise AssertionError(f"flash_attention backward launches {bwd}, "
-                             f"expected {expect}")
+                             f"{bwd_wgmma} on the tensor cores; expected "
+                             f"{expect}, {n_bf16} (every bfloat16 one)")
     log(f"  {n_cases} cases within band in {time.perf_counter() - t0:.1f} s; "
         "max |err| " + ", ".join(
             f"{'/'.join(k) if isinstance(k, tuple) else k} {v:.3g}"
             for k, v in worst.items())
         + f"; repeat backward launches bit-identical ({bwd} backward "
-        "launches); out with lse bit-equal to out without")
+        f"launches, the {bwd_wgmma} bfloat16 ones on the tensor cores); out "
+        "with lse bit-equal to out without")
 
 
 def _forward_lse_checks(q, k, v, out, causal, window, softcap, tag):
@@ -2458,10 +2475,10 @@ def phase_lm_consistency(name: str, seed: int, layers: int = 4, n: int = 32,
     return worst
 
 
-def _device_report(prof, wall_ms: float, what: str, top: int = 12) -> None:
-    """Device time by kernel (the CUDA events' self time, summed over the
-    window; the operators that launch them are not counted again) and the
-    device's busy and idle share of the window's wall time."""
+def _device_rows(prof):
+    """(ms, launches, name) of each kernel in a torch.profiler window: the
+    CUDA events' self time, summed (the operators that launch them are not
+    counted again)."""
     from torch.autograd import DeviceType
     rows = []
     for ev in prof.key_averages():
@@ -2472,6 +2489,13 @@ def _device_report(prof, wall_ms: float, what: str, top: int = 12) -> None:
             t = ev.self_cuda_time_total
         if t > 0:
             rows.append((t / 1e3, ev.count, ev.key))
+    return rows
+
+
+def _device_report(prof, wall_ms: float, what: str, top: int = 12) -> None:
+    """Device time by kernel (``_device_rows``) and the device's busy and
+    idle share of the window's wall time."""
+    rows = _device_rows(prof)
     busy = sum(r[0] for r in rows)
     share = 100 * busy / wall_ms
     log(f"  {what}: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
@@ -2727,9 +2751,10 @@ def _check_train_counts(cfg, steps: int, what: str) -> dict:
     ``steps`` train steps of ``cfg`` make on the card: each GQA layer's
     forward twice a step (the pass and its remat recompute; no config here
     has a prelude, which is not recomputed), on the tensor-core forward in
-    bf16, and its backward once; nothing else, and no plain version.
-    Returns the forward (``launches``), tensor-core forward (``wgmma``)
-    and backward (``bwd``) launches."""
+    bf16, and its backward once, on the tensor-core backward in bf16;
+    nothing else, and no plain version.  Returns the forward
+    (``launches``), tensor-core forward (``wgmma``), backward (``bwd``) and
+    tensor-core backward (``bwd_wgmma``) launches."""
     import torch
     from repro_torch import kernels
     from repro_torch.kernels.flash_attention import flash_attention_cuda
@@ -2737,13 +2762,14 @@ def _check_train_counts(cfg, steps: int, what: str) -> dict:
     if cfg.prelude:
         raise AssertionError(f"{cfg.name}: a prelude is not recomputed")
     n = flash_layers(cfg)
-    want = {"launches": 2 * n * steps,
-            "wgmma": 2 * n * steps * (cfg.dtype == torch.bfloat16),
-            "bwd": n * steps}
+    bf16 = cfg.dtype == torch.bfloat16
+    want = {"launches": 2 * n * steps, "wgmma": 2 * n * steps * bf16,
+            "bwd": n * steps, "bwd_wgmma": n * steps * bf16}
     counts = kernels.counters()
     got = {"launches": counts["flash_attention"]["launches"],
            "wgmma": flash_attention_cuda.wgmma_launches,
-           "bwd": flash_attention_cuda.bwd_launches}
+           "bwd": flash_attention_cuda.bwd_launches,
+           "bwd_wgmma": flash_attention_cuda.bwd_wgmma_launches}
     others = {k: c for k, c in counts.items() if k != "flash_attention"}
     if got != want or any(c["plain_calls"] for c in counts.values()) or \
             any(c["launches"] for c in others.values()):
@@ -2752,7 +2778,7 @@ def _check_train_counts(cfg, steps: int, what: str) -> dict:
     return got
 
 
-def phase_train(name: str, seed: int, smi):
+def phase_train(name: str, seed: int, smi, profile: bool = False):
     """The training path (``launch/train.py``: the token pipeline,
     ``LM.loss`` with remat per pattern unit, the chunked cross-entropy,
     AdamW on the cosine schedule, the watchdog) of ``name`` at full width
@@ -2760,7 +2786,9 @@ def phase_train(name: str, seed: int, smi):
     ms per step, tokens/s, peak memory, every loss and gradient norm finite
     and every norm > 0, and the launches of ``_check_train_counts``
     (attention's forward kernel and backward kernels; no plain version).
-    Then at TRAIN_RUNS' check depth in float32 (attention on the float32
+    With ``profile``, one more (warm) step of the trained model under
+    torch.profiler: device time by kernel and the idle share.  Then at
+    TRAIN_RUNS' check depth in float32 (attention on the float32
     SIMT forward and the float32 backward): 2 steps on the card against the
     same 2 on the CPU, and a run preempted after its 3rd of 4 steps and
     resumed from its checkpoint (``CheckpointManager``) against the
@@ -2795,7 +2823,7 @@ def phase_train(name: str, seed: int, smi):
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_counters()
     hist = []
-    _, _, losses = train(
+    _, opt_state, losses = train(
         model=model, steps=steps, batch=TRAIN_BATCH, seq=TRAIN_SEQ, lr=3e-4,
         seed=seed, verbose=False, history=hist)
     torch.cuda.synchronize()
@@ -2818,11 +2846,14 @@ def phase_train(name: str, seed: int, smi):
         + f", peak device memory {peak:.2f} GiB; losses "
         f"{[round(v, 4) for v in losses]}; grad norms "
         f"{[round(g, 4) for g in norms]}; launches {got} "
-        "(forward, tensor-core forward, backward), no plain call")
+        "(forward, tensor-core forward, backward, tensor-core backward), no "
+        "plain call")
     timings = {"ms": ms, "tokens_per_s": rate, "peak_gib": peak,
                "losses": losses, "grad_norms": norms,
                "fwd": got["launches"], "bwd": got["bwd"]}
-    del model
+    if profile:
+        _profile_train_step(model, opt_state, steps, seed)
+    del model, opt_state
     torch.cuda.empty_cache()
 
     cfg = dataclasses.replace(configs.get_config(name),
@@ -2911,6 +2942,32 @@ def phase_train(name: str, seed: int, smi):
     return timings
 
 
+def _profile_train_step(model, opt_state, steps: int, seed: int) -> None:
+    """One more train step of ``model`` from ``opt_state`` (warm: the
+    kernels are built and the allocator's pools filled by the steps before)
+    on the next batch of the run's token pipeline, under torch.profiler:
+    where the step's device time goes, by kernel, and the idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data import TokenPipeline, TokenPipelineConfig
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import AdamWConfig
+    cfg = model.cfg
+    pipe = TokenPipeline(TokenPipelineConfig(
+        vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+        seed=seed))
+    step_fn = make_train_step(model, AdamWConfig(lr=3e-4), 10, steps + 1)
+    toks, labels = pipe.batch(steps)
+    tokens = torch.from_numpy(toks).to(model.device)
+    labels = torch.from_numpy(labels).to(model.device)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ms, _ = once_ms(lambda: step_fn(opt_state, tokens, labels))
+    _device_report(prof, ms, f"{cfg.name} train step {steps + 1} (warm, "
+                   "under torch.profiler)", top=12)
+
+
 def phase_flash_bwd_times(launches: int):
     """The backward kernels at stablelm-1.6b's train shape (B 4, H 32, S
     4096, D 64, causal, bf16; seeded q, k, v, d_out): CUDA-event median of
@@ -2922,8 +2979,9 @@ def phase_flash_bwd_times(launches: int):
     bound, 10 D operations per unmasked pair and head at the bf16
     tensor-core peak against the bytes (q, k, v, d_out, the float32 out
     and lse read once, dq, dk, dv written once).  The kernel's gradients
-    are held against the plain ones at the band.  Returns the kernels
-    line's row."""
+    are held against the plain ones at the band, and three launches run
+    under torch.profiler for the device time of each of its kernels.
+    Returns the kernels line's row."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (_launch_bwd,
@@ -2943,6 +3001,7 @@ def phase_flash_bwd_times(launches: int):
                   for lse_ in (True, False)}
     run = lambda: _launch_bwd(q, k, v, o32, lse, d_out, True, None, None)
     ms = cuda_ms(run, reps=5)
+    split = _kernel_split(run, 3)
     got = run()
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
     out = flash_attention_plain(*leaves, True, None, None)
@@ -2970,8 +3029,10 @@ def phase_flash_bwd_times(launches: int):
         with torch.no_grad():
             sdpa_ms = cuda_ms(sdpa_fwd, reps=5)
         lib_ms = cuda_ms(sdpa_fwd_bwd, reps=5) - sdpa_ms
-        lib_note = f"scaled_dot_product_attention backward {lib_ms:.3f} ms"
+        lib_note = (f"scaled_dot_product_attention backward {lib_ms:.3f} ms"
+                    f" (its forward {sdpa_ms:.3f} ms)")
     except Exception as e:   # the yardstick only: the port never calls it
+        sdpa_ms = None
         lib_note = f"scaled_dot_product_attention none: {type(e).__name__}"
     pairs = _unmasked_pairs(s, True, None)
     t_ops = 10 * d * pairs * b * h / PEAK_BF16
@@ -2985,6 +3046,8 @@ def phase_flash_bwd_times(launches: int):
     row["bound_share"] = row["bound_ms"] / ms
     row["tflops"] = 10 * d * pairs * b * h / ms / 1e9
     row["fwd_lse_ms"] = fwd_ms[True]
+    row["sdpa_fwd_ms"] = sdpa_ms
+    row["split_ms"] = split
     log(f"  flash_attention forward at that shape: {fwd_ms[True]:.3f} ms "
         f"with lse and the float32 out (a train step's), {fwd_ms[False]:.3f}"
         " ms without (prefill's); median of 5")
@@ -2995,7 +3058,31 @@ def phase_flash_bwd_times(launches: int):
         f"{100 * row['bound_share']:.1f} % of the bound); {lib_note}; "
         f"max |err| vs the plain gradients {err:.3g}; {launches} backward "
         "launches on the main paths")
+    log("  its kernels (device ms a launch, torch.profiler): " + (", ".join(
+        f"{name} {t:.3f}" for name, t in split.items()) or "not measured "
+        "(the profiler recorded no kernel)"))
     return row
+
+
+def _kernel_split(fn, n: int) -> dict:
+    """Device ms of each kernel ``fn()`` launches, averaged over ``n``
+    calls under torch.profiler, by the kernel's name up to its template
+    arguments."""
+    import re
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for ms, _, key in _device_rows(prof):
+        found = re.search(r"(\w+)[<(]", key)
+        name = found.group(1) if found else key[:40]
+        split[name] = split.get(name, 0.0) + ms / n
+    return split
 
 
 def _unmasked_pairs(s: int, causal: bool, window):
@@ -3729,7 +3816,7 @@ def main(argv=None) -> int:
     train_xlstm = timed("train xlstm-350m", phase_train, "xlstm-350m",
                         args.seed, smi)
     train_lm = timed("train stablelm-1.6b", phase_train, "stablelm-1.6b",
-                     args.seed, smi)
+                     args.seed, smi, profile=True)
     log(f"== flash_attention backward times at stablelm-1.6b's train shape "
         f"(card: {smi})")
     rows.append(timed("flash_bwd_times", phase_flash_bwd_times,

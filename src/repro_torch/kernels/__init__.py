@@ -50,6 +50,7 @@ def reset_counters() -> None:
         fn.calls = 0
     flash_attention_cuda.wgmma_launches = 0
     flash_attention_cuda.bwd_launches = 0
+    flash_attention_cuda.bwd_wgmma_launches = 0
 
 
 def counters() -> Dict[str, Dict[str, int]]:
@@ -57,8 +58,9 @@ def counters() -> Dict[str, Dict[str, int]]:
     :func:`reset_counters` (``flash_attention_cuda.wgmma_launches`` says how
     many of flash_attention's forward launches took its tensor-core kernel,
     ``flash_attention_cuda.bwd_launches`` how many backward launches it
-    made; ``plain_calls`` counts the plain backward and row statistics
-    too)."""
+    made and ``flash_attention_cuda.bwd_wgmma_launches`` how many of those
+    took its tensor-core backward; ``plain_calls`` counts the plain
+    backward and row statistics too)."""
     return {name: {"launches": _LAUNCHES[name].launches,
                    "plain_calls": _PLAIN[name].calls}
             for name in _LAUNCHES}

@@ -42,7 +42,8 @@ SOURCES = {"fp_ray": "fp_ray.cu", "bp_matched": "bp_matched.cu",
 HEADERS = {"fp_ray": ("joseph_common.cuh", "tile_configs.cuh"),
            "bp_matched": ("joseph_common.cuh", "tile_configs.cuh"),
            "bp_voxel": ("tile_configs.cuh",), "tv_grad": (),
-           "flash_attention": (), "flash_attention_bwd": ()}
+           "flash_attention": ("hopper_common.cuh",),
+           "flash_attention_bwd": ("hopper_common.cuh",)}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -22,9 +22,11 @@ keys have one length (self-attention, as every caller in the reference).
   fp32 units.  With gradients on and a q, k or v that requires one, it
   goes through :class:`_FlashAttentionFn`: the forward also writes each
   row's log-sum-exp, and the backward launches the kernels of
-  ``csrc/flash_attention_bwd.cu`` (float32 SIMT products for both types)
-  for dq, dk and dv.  Otherwise the forward alone runs, as in prefill.  A
-  launch that fails raises; nothing falls back, forward or backward;
+  ``csrc/flash_attention_bwd.cu`` for dq, dk and dv: for bfloat16 on the
+  tensor cores (wgmma, TMA, P and dS as bf16 hi/lo pairs), for float32 the
+  SIMT kernels on the fp32 units.  Otherwise the forward alone runs, as
+  in prefill.  A launch that fails raises; nothing falls back, forward or
+  backward;
 * :func:`flash_attention_plain` is the same function in plain PyTorch, a
   dense softmax as ``kernels/ref.py::flash_attention_ref`` (the reference's
   oracle), in query chunks whose score block stays near
@@ -40,8 +42,10 @@ keys have one length (self-attention, as every caller in the reference).
 kernel, ``flash_attention_cuda.wgmma_launches`` those of the bfloat16
 tensor-core kernel among them, ``flash_attention_cuda.bwd_launches``
 backward launches (one per backward: the preprocess, dK/dV and dQ
-kernels), and ``flash_attention_plain.calls`` calls of any of the plain
-versions (see :func:`repro_torch.kernels.counters`).
+kernels), ``flash_attention_cuda.bwd_wgmma_launches`` those of the
+bfloat16 tensor-core backward among them, and
+``flash_attention_plain.calls`` calls of any of the plain versions (see
+:func:`repro_torch.kernels.counters`).
 """
 
 from __future__ import annotations
@@ -308,12 +312,19 @@ def _launch_fwd_lse(q, k, v, causal, window, softcap):
 def _launch_bwd(q, k, v, o, lse, d_out, causal, window, softcap):
     """(dq, dk, dv) of the backward kernels (``csrc/flash_attention_bwd.cu``:
     Di, then dK/dV, then dQ, one launch of the entry) from the forward's
-    float32 output ``o`` and ``lse``."""
+    float32 output ``o`` and ``lse``.  bfloat16 takes the tensor-core
+    kernels (wgmma; q', d_out, K, V, lse and Di by TMA), float32 the SIMT
+    ones: the type alone chooses."""
     b, hq, s, d = q.shape
     for name, t in (("o", o), ("lse", lse), ("d_out", d_out)):
         _check_cuda(t, name)
     _check_bwd(q, o, lse, d_out)
     o, lse, d_out = o.contiguous(), lse.contiguous(), d_out.contiguous()
+    bf16 = q.dtype == torch.bfloat16
+    if bf16 and any(t.data_ptr() % 16 for t in (q, k, v, d_out, lse)):
+        raise ValueError("the tensor-core backward reads q, k, v, d_out and "
+                         "lse by TMA or 16-byte loads: they must start "
+                         "16-byte aligned")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if dq.numel() == 0:
         return dq, dk, dv
@@ -325,6 +336,7 @@ def _launch_bwd(q, k, v, o, lse, d_out, causal, window, softcap):
         k.shape[1], s, d, _DTYPES[q.dtype], 1.0 / math.sqrt(d), int(causal),
         window or 0, float(softcap or 0.0), *_stream_args(q.device))
     flash_attention_cuda.bwd_launches += 1
+    flash_attention_cuda.bwd_wgmma_launches += int(bf16)
     return dq, dk, dv
 
 
@@ -377,6 +389,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention_cuda.launches = 0
 flash_attention_cuda.wgmma_launches = 0
 flash_attention_cuda.bwd_launches = 0
+flash_attention_cuda.bwd_wgmma_launches = 0
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

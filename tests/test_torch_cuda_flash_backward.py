@@ -1,9 +1,12 @@
 """The flash_attention backward kernels on the card: dq, dk, dv of
 ``flash_attention_cuda`` under autograd (its ``_FlashAttentionFn``: the
-forward with its row statistics, then ``csrc/flash_attention_bwd.cu``)
+forward with its row statistics, then ``csrc/flash_attention_bwd.cu``:
+the tensor-core kernels for bfloat16, counted in
+``flash_attention_cuda.bwd_wgmma_launches``, the SIMT ones for float32)
 against autograd of the plain version on the same card, repeat launches
-bit for bit, the forward's out unchanged by asking for lse, and one
-stablelm-1.6b layer at full width trained on the card against the CPU.
+bit for bit, a bfloat16 tensor that TMA cannot read refused, the forward's
+out unchanged by asking for lse, and one stablelm-1.6b layer at full width
+trained on the card against the CPU.
 
 Every test here needs a CUDA device and skips without one; the kernels are
 built by ``nvcc`` at first use.  The file imports nothing of JAX:
@@ -26,7 +29,8 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.configs import get_config
-from repro_torch.kernels.flash_attention import (HEAD_DIMS, _launch_fwd,
+from repro_torch.kernels.flash_attention import (HEAD_DIMS, _launch_bwd,
+                                                 _launch_fwd,
                                                  flash_attention_cuda,
                                                  flash_attention_plain,
                                                  flash_attention_plain_lse)
@@ -80,7 +84,8 @@ def _assert_band(got, want, dtype, what):
 def test_backward_matches_plain_autograd(cuda, b, hq, hkv, s, causal, window,
                                          softcap, d, dtype):
     """dq, dk, dv of the kernels against autograd of the plain version, and
-    a second backward on the same graph gives the same bits."""
+    a second backward on the same graph gives the same bits; bfloat16 runs
+    the tensor-core backward, float32 the SIMT one."""
     q, k, v, d_out = _inputs(b, hq, hkv, s, d, dtype)
     masks = (causal, window, softcap)
     kernels.reset_counters()
@@ -90,11 +95,34 @@ def test_backward_matches_plain_autograd(cuda, b, hq, hkv, s, causal, window,
     again = torch.autograd.grad(out, leaves, d_out)
     assert flash_attention_cuda.launches == 1
     assert flash_attention_cuda.bwd_launches == 2
+    assert flash_attention_cuda.bwd_wgmma_launches == \
+        2 * (dtype == torch.bfloat16)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     _, want = _grads(flash_attention_plain, q, k, v, d_out, *masks)
     for name, a, w in zip(("dq", "dk", "dv"), got, want):
         assert a.dtype == dtype
         _assert_band(a, w, dtype, name)
+
+
+@pytest.mark.parametrize("which", ["d_out", "lse"])
+def test_backward_refuses_a_bf16_tensor_tma_cannot_read(cuda, which):
+    """The tensor-core backward reads d_out and lse by TMA: one that does
+    not start on 16 bytes is refused before any launch."""
+    q, k, v, d_out = _inputs(1, 4, 2, 200, 64, torch.bfloat16)
+    with torch.no_grad():
+        _, lse, out_f32 = _launch_fwd(q, k, v, True, None, None, True)
+    args = {"d_out": d_out, "lse": lse}
+    t = args[which]
+    shifted = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    shifted = shifted[1:].view(t.shape)
+    shifted.copy_(t)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+    args[which] = shifted
+    kernels.reset_counters()
+    with pytest.raises(ValueError, match="16-byte"):
+        _launch_bwd(q, k, v, out_f32, args["lse"], args["d_out"], True, None,
+                    None)
+    assert flash_attention_cuda.bwd_launches == 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -195,6 +195,25 @@ def test_build_locations_and_missing_nvcc(monkeypatch):
         build.nvcc_path()
 
 
+def test_headers_list_every_local_include():
+    """Each source's quoted includes (and theirs) are the headers
+    build.HEADERS lists for it, so that the library digest covers them:
+    the two flash sources share csrc/hopper_common.cuh."""
+    import re
+
+    def local(fname):
+        text = (build.CSRC / fname).read_text()
+        found = set(re.findall(r'^#include "([^"]+)"', text, re.M))
+        for inc in sorted(found):
+            found |= local(inc)
+        return found
+
+    for name, src in build.SOURCES.items():
+        assert local(src) == set(build.HEADERS[name]), name
+    assert "hopper_common.cuh" in build.HEADERS["flash_attention"]
+    assert "hopper_common.cuh" in build.HEADERS["flash_attention_bwd"]
+
+
 def _offset_geos():
     """Non-cubic volume, non-square detector, every offset non-zero: the
     x-dominant kernels take any such geometry (only the y-dominant rotation
