@@ -130,9 +130,17 @@ stablelm's next step runs under torch.profiler (device time by kernel).
 For each config, one pattern unit (stablelm: one layer) in float32 trains
 2 steps on the card and on the CPU from the same weights (losses,
 gradient norms, parameters compared), and a run preempted after its 3rd
-of 4 steps resumes from its checkpoint with the uninterrupted losses.  ``flash_attention``'s checks
-end with ``phase_flash_backward_checks``: dq, dk and dv of the backward
-kernels against autograd of the plain version at every head dim, S 1000
+of 4 steps resumes from its checkpoint with the uninterrupted losses.
+Then ``phase_train_sharded``: ``launch/train.py`` trains stablelm-1.6b at
+full width and depth on a (data 2, model 2) mesh of four ``cuda:0``
+shards (``ShardedLM``: tensor parallel over model, data parallel over
+data, ZeRO-1), the same batch 4 x 4096 for 2 steps: ms per step,
+tokens/s, peak memory, the bytes each collective moves per step, and the
+flash forward and backward launches of its 4 shards, counted and
+checked; one layer in float32 trains 2 steps on the mesh and on one
+device of the card, from the same weights, compared.
+``flash_attention``'s checks end with ``phase_flash_backward_checks``:
+dq, dk and dv of the backward kernels against autograd of the plain version at every head dim, S 1000
 and 77, GQA 1/2/4, the masks and the cap, float32 and bfloat16 (the
 bfloat16 ones on the tensor-core kernels), repeat backward launches
 bit-identical, the forward's out unchanged by asking for its row
@@ -2734,6 +2742,9 @@ TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 2, 64
 #: losses and gradient norms, card vs CPU and resumed vs uninterrupted
 #: (tests/test_fault_tolerance.py's resume band); parameters card vs CPU
 TRAIN_RTOL, PARAM_RTOL, PARAM_ATOL = 1e-4, 1e-3, 1e-5
+#: losses and gradient norms, the mesh vs one device on the card
+#: (tests/test_torch_sharded_train.py's float32 band)
+SHARDED_RTOL = 1e-5
 
 
 def _unit_model(cfg, seed: int, device: str):
@@ -2746,22 +2757,23 @@ def _unit_model(cfg, seed: int, device: str):
     return model.to(device)
 
 
-def _check_train_counts(cfg, steps: int, what: str) -> dict:
+def _check_train_counts(cfg, steps: int, what: str, shards: int = 1) -> dict:
     """The kernel launches since the counters were set to 0 are those
     ``steps`` train steps of ``cfg`` make on the card: each GQA layer's
     forward twice a step (the pass and its remat recompute; no config here
     has a prelude, which is not recomputed), on the tensor-core forward in
-    bf16, and its backward once, on the tensor-core backward in bf16;
-    nothing else, and no plain version.  Returns the forward
-    (``launches``), tensor-core forward (``wgmma``), backward (``bwd``) and
-    tensor-core backward (``bwd_wgmma``) launches."""
+    bf16, and its backward once, on the tensor-core backward in bf16, on
+    each of ``shards`` shards of a mesh; nothing else, and no plain
+    version.  Returns the forward (``launches``), tensor-core forward
+    (``wgmma``), backward (``bwd``) and tensor-core backward
+    (``bwd_wgmma``) launches."""
     import torch
     from repro_torch import kernels
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.models.lm import flash_layers
     if cfg.prelude:
         raise AssertionError(f"{cfg.name}: a prelude is not recomputed")
-    n = flash_layers(cfg)
+    n = flash_layers(cfg) * shards
     bf16 = cfg.dtype == torch.bfloat16
     want = {"launches": 2 * n * steps, "wgmma": 2 * n * steps * bf16,
             "bwd": n * steps, "bwd_wgmma": n * steps * bf16}
@@ -2942,11 +2954,137 @@ def phase_train(name: str, seed: int, smi, profile: bool = False):
     return timings
 
 
+#: the sharded train phase: a (data 2, model 2) mesh of one card, ZeRO-1
+SHARDED_DATA, SHARDED_MODEL = 2, 2
+
+
+def phase_train_sharded(seed: int, smi):
+    """The sharded training path (``launch/train.py`` on a mesh:
+    ``ShardedLM``, its collectives, ``adamw_update_mesh`` with ZeRO-1) of
+    stablelm-1.6b at full width and depth on a (data 2, model 2) mesh of
+    four ``cuda:0`` shards, train_4k cut to the global batch 4 x 4096 of
+    ``phase_train``, 2 steps (cold, then warm): ms per step, tokens/s,
+    peak memory, every loss and gradient norm finite, the bytes each
+    collective moves per step, and the flash forward and backward
+    launches of the 4 shards (``_check_train_counts``); a third (warm)
+    step under torch.profiler: device time by kernel and the idle share.
+    Then one layer in float32 (attention on the float32 SIMT kernels),
+    batch 2 x 64: 2 steps on the mesh against 2 of the single-device
+    trainer on the card from the same weights, each run's launches
+    counted from 0 and checked;
+    losses and gradient norms rtol 1e-5, parameters rtol 1e-3 atol 1e-5.
+    Returns the timings and the flash forward (``fwd``) and backward
+    (``bwd``) launches of the main run alone."""
+    import dataclasses
+    import math
+    import torch
+    from repro_torch import configs, kernels
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import train
+    from repro_torch.models.lm import LM
+    from repro_torch.models.sharded_lm import ShardedLM
+    name, steps = "stablelm-1.6b", 2
+    shards = SHARDED_DATA * SHARDED_MODEL
+    mesh = make_host_mesh(SHARDED_MODEL, devices=["cuda:0"] * shards)
+    cfg = configs.get_config(name)
+    t_phase = time.perf_counter()
+    log(f"== train on a mesh: {name} at full width and depth (card: {smi}); "
+        f"(data {SHARDED_DATA}, model {SHARDED_MODEL}) of {shards} cuda:0 "
+        f"shards, ZeRO-1; global batch {TRAIN_BATCH} x {TRAIN_SEQ}, {steps} "
+        "steps at lr 3e-4; remat per layer")
+    model = LM(cfg, device="cuda",
+               generator=torch.Generator(device="cuda").manual_seed(seed))
+    sharded = ShardedLM(model, mesh)
+    del model
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counters()
+    sharded.comm.reset_bytes()
+    hist = []
+    _, opt_state, losses = train(
+        model=sharded, steps=steps, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        lr=3e-4, seed=seed, verbose=False, history=hist)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    got = _check_train_counts(cfg, steps, f"train {name} on the mesh",
+                              shards)
+    norms = [h["grad_norm"] for h in hist]
+    ms = [1e3 * h["seconds"] for h in hist]
+    if len(losses) != steps or not all(
+            math.isfinite(v) for v in losses + norms) or \
+            not all(g > 0 for g in norms):
+        raise AssertionError(f"train on the mesh: losses {losses}, grad "
+                             f"norms {norms}")
+    per_step = {k: v // steps for k, v in sorted(sharded.comm.bytes.items())}
+    rate = TRAIN_BATCH * TRAIN_SEQ / ms[-1] * 1e3
+    log(f"  ms per step {[round(m, 1) for m in ms]} (the first cold), "
+        f"{rate:.0f} tokens/s at the last step, peak device memory "
+        f"{peak:.2f} GiB; losses {[round(v, 4) for v in losses]}; grad norms "
+        f"{[round(g, 4) for g in norms]}; launches {got} (forward, "
+        "tensor-core forward, backward, tensor-core backward; 4 shards), no "
+        "plain call")
+    log(f"  bytes between shards per step, by collective: {per_step} "
+        f"({sum(per_step.values()) / 2**30:.2f} GiB in all)")
+    timings = {"ms": ms, "tokens_per_s": rate, "peak_gib": peak,
+               "losses": losses, "grad_norms": norms, "bytes": per_step,
+               "fwd": got["launches"], "bwd": got["bwd"]}
+    _profile_train_step(sharded, opt_state, steps, seed)
+    del sharded, opt_state
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(cfg, name=f"{name}-layer", n_layers=1,
+                              dtype=torch.float32)
+    kw = dict(steps=2, batch=TRAIN_CHECK_BATCH, seq=TRAIN_CHECK_SEQ,
+              seed=seed, verbose=False)
+    runs = {}
+    for where in ("one device", "mesh"):
+        m = _unit_model(cfg, seed + 8, "cuda")
+        if where == "mesh":
+            m = ShardedLM(m, mesh)
+        hist = []
+        kernels.reset_counters()
+        _, _, unit_losses = train(model=m, history=hist, **kw)
+        _check_train_counts(cfg, 2, f"train {cfg.name} on {where}",
+                            shards if where == "mesh" else 1)
+        params = m.gather() if where == "mesh" else \
+            {n: p.detach().cpu() for n, p in m.named_parameters()}
+        runs[where] = (params, unit_losses, [h["grad_norm"] for h in hist])
+    rel = {}
+    for i, what in ((1, "losses"), (2, "grad norms")):
+        got, want = runs["mesh"][i], runs["one device"][i]
+        rel[what] = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        if rel[what] > SHARDED_RTOL:
+            raise AssertionError(f"train on the mesh vs one device: {what} "
+                                 f"{got} vs {want}")
+    worst = 0.0
+    for pname, a in runs["one device"][0].items():
+        b = runs["mesh"][0][pname]
+        err = (b - a).abs()
+        bad = err > PARAM_ATOL + PARAM_RTOL * a.abs()
+        if bool(bad.any()):
+            raise AssertionError(f"train on the mesh vs one device: {pname}, "
+                                 f"{int(bad.sum())} parameters outside "
+                                 f"rtol {PARAM_RTOL} atol {PARAM_ATOL}")
+        worst = max(worst, float(err.max()))
+    log(f"  mesh vs one device on the card, 1 float32 layer, batch "
+        f"{TRAIN_CHECK_BATCH} x {TRAIN_CHECK_SEQ}, 2 steps: losses "
+        f"{[round(v, 6) for v in runs['mesh'][1]]} (max rel err "
+        f"{rel['losses']:.2e}), grad norms max rel err "
+        f"{rel['grad norms']:.2e} (rtol {SHARDED_RTOL}), parameters max "
+        f"|err| {worst:.2e} (rtol {PARAM_RTOL}, atol {PARAM_ATOL})")
+    del runs
+    torch.cuda.empty_cache()
+    log(f"  sharded train phase {time.perf_counter() - t_phase:.1f} s")
+    return timings
+
+
 def _profile_train_step(model, opt_state, steps: int, seed: int) -> None:
-    """One more train step of ``model`` from ``opt_state`` (warm: the
-    kernels are built and the allocator's pools filled by the steps before)
-    on the next batch of the run's token pipeline, under torch.profiler:
-    where the step's device time goes, by kernel, and the idle share."""
+    """One more train step of ``model`` (an ``LM`` or a ``ShardedLM``, whose
+    step takes the global batch) from ``opt_state`` (warm: the kernels are
+    built and the allocator's pools filled by the steps before) on the
+    next batch of the run's token pipeline, under torch.profiler: where
+    the step's device time goes, by kernel, and the idle share."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.data import TokenPipeline, TokenPipelineConfig
@@ -3817,11 +3955,13 @@ def main(argv=None) -> int:
                         args.seed, smi)
     train_lm = timed("train stablelm-1.6b", phase_train, "stablelm-1.6b",
                      args.seed, smi, profile=True)
+    train_mesh = timed("train_sharded", phase_train_sharded, args.seed, smi)
     log(f"== flash_attention backward times at stablelm-1.6b's train shape "
         f"(card: {smi})")
     rows.append(timed("flash_bwd_times", phase_flash_bwd_times,
-                      train_xlstm["bwd"] + train_lm["bwd"]))
-    train_fwd = train_xlstm["fwd"] + train_lm["fwd"]
+                      train_xlstm["bwd"] + train_lm["bwd"] +
+                      train_mesh["bwd"]))
+    train_fwd = train_xlstm["fwd"] + train_lm["fwd"] + train_mesh["fwd"]
     flash_row["launches"] += zoo_launches + train_fwd
     for tag, timing in zoo_shapes.items():
         _add_flash_shape(flash_row, tag, timing)

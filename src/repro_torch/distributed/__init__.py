@@ -1,8 +1,12 @@
 """Runtime helpers of training: the straggler watchdog and the
-heartbeat-based failure detector.  The sharding rules of the reference's
-``repro.distributed`` (a mesh of several devices) are not ported yet
-(ROADMAP A3.4)."""
+heartbeat-based failure detector; the reference's sharding rules on a
+mesh (:mod:`.sharding`) and the collectives between the shards of a mesh
+in one process (:mod:`.collectives`)."""
 
+from .collectives import MeshComm
+from .sharding import (batch_sharding, leaf_layouts, make_lm_rules,
+                       param_shardings)
 from .watchdog import Heartbeat, StepWatchdog
 
-__all__ = ["StepWatchdog", "Heartbeat"]
+__all__ = ["StepWatchdog", "Heartbeat", "MeshComm", "make_lm_rules",
+           "param_shardings", "batch_sharding", "leaf_layouts"]

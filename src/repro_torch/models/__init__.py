@@ -1,5 +1,5 @@
 """The LM side of the port: attention, MLA, cross-attention, MoE, Mamba2
-and xLSTM blocks on one device.
+and xLSTM blocks on one device, and the dense GQA blocks on a mesh.
 
 * :mod:`.common` — norms, rotary embedding, init, the chunked
   cross-entropy;
@@ -18,7 +18,10 @@ and xLSTM blocks on one device.
   blocks, in plain ops as the reference;
 * :mod:`.perf` — the reference's perf-variant flags;
 * :mod:`.lm` — ``ArchConfig``, the blocks, the ``LM`` module (with its
-  training loss) and ``load_reference_params``.
+  training loss and the reference's parameter axes) and
+  ``load_reference_params``;
+* :mod:`.sharded_lm` — ``ShardedLM``, the dense GQA configs on a mesh
+  (tensor parallel over ``model``, data parallel over ``data``).
 """
 
 from . import moe  # noqa: F401

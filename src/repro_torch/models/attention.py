@@ -3,6 +3,10 @@ window, soft-cap, QK-norm), MLA (minicpm3's latent KV) and gated
 cross-attention (llama-3.2-vision's image layers).  Each has an init, a
 full-sequence pass (prefill) and a one-token decode (cross-attention has no
 cache: it re-projects the image context every step, as the reference).
+GQA's full-sequence pass also runs on the model shards of a mesh
+(:func:`gqa_fwd_mesh`, heads split by the reference's ``heads_x_dim`` and
+``kv_x_dim`` columns); each module keeps the reference's logical axes of
+its leaves (``GQA_AXES``, ``MLA_AXES``).
 
 Port of ``repro/models/attention.py``.  The reference picks its GQA
 full-sequence attention with ``AttnConfig.use_flash``: the Pallas kernel
@@ -35,7 +39,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -75,14 +79,32 @@ def init_gqa(gen: Optional[torch.Generator], cfg: AttnConfig,
     return p
 
 
+#: the reference's logical axes of the GQA leaves (``GQA_AXES``)
+GQA_AXES = {
+    "wq": ("embed", "heads_x_dim"),
+    "wk": ("embed", "kv_x_dim"),
+    "wv": ("embed", "kv_x_dim"),
+    "wo": ("heads_x_dim", "embed"),
+    "q_scale": (None,),
+    "k_scale": (None,),
+}
+
+
 def _project(p, x: torch.Tensor, cfg: AttnConfig, positions: torch.Tensor):
     """q (B, H, S, D), k and v (B, Hkv, S, D): projected, QK-normed and
     rotated as in the reference."""
-    b, s, _ = x.shape
-    h, kvh, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
-    q = (x @ p["wq"]).view(b, s, h, hd)
-    k = (x @ p["wk"]).view(b, s, kvh, hd)
-    v = (x @ p["wv"]).view(b, s, kvh, hd)
+    return _heads(p, x @ p["wq"], x @ p["wk"], x @ p["wv"], cfg, positions)
+
+
+def _heads(p, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           cfg: AttnConfig, positions: torch.Tensor):
+    """Projected q (B, S, nq * D) and k, v (B, S, nk * D), whole heads,
+    QK-normed and rotated: q (B, nq, S, D), k and v (B, nk, S, D)."""
+    b, s, _ = q.shape
+    hd = cfg.head_dim
+    q = q.view(b, s, -1, hd)
+    k = k.view(b, s, -1, hd)
+    v = v.view(b, s, -1, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_scale"])
         k = rms_norm(k, p["k_scale"])
@@ -105,6 +127,98 @@ def gqa_fwd(p, x: torch.Tensor, cfg: AttnConfig,
                         softcap=cfg.softcap)
     o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim)
     return o @ p["wo"]
+
+
+@dataclasses.dataclass(frozen=True)
+class GQAShardPlan:
+    """What one model shard computes of a GQA layer on a mesh.  Ranges
+    are of the flat projection columns (``wq``'s H * D, ``wk``'s
+    Hkv * D) or of heads."""
+    q_own: Tuple[int, int]          # its columns of wq, and rows of wo
+    kv_own: Tuple[int, int]         # its columns of wk and wv
+    heads: Tuple[int, int]          # the query heads it attends
+    kv_heads: Tuple[int, int]       # the KV heads they read
+    #: the local KV head of each local query head where the kernel's
+    #: grouping (query head i reads KV head i // (nq // nk)) differs
+    kv_index: Optional[Tuple[int, ...]]
+
+
+def gqa_mesh_plan(cfg: AttnConfig, n_model: int, q_split: bool,
+                  kv_split: bool) -> List[GQAShardPlan]:
+    """Each model shard's part of a GQA layer: ``wq``'s columns and
+    ``wo``'s rows in equal blocks when ``q_split`` (the reference's
+    ``heads_x_dim`` on the model axis), ``wk``'s and ``wv``'s columns when
+    ``kv_split`` (``kv_x_dim``), the whole matrix otherwise.  A shard
+    attends every head its block of ``wo``'s rows touches, so that a
+    block that ends inside a head (a flat axis that divides where the
+    head count does not) computes that head whole, as its neighbour does;
+    it reads the KV heads of those query heads, whoever holds their
+    columns."""
+    hd, h, kvh = cfg.head_dim, cfg.n_heads, cfg.n_kv
+    group = h // kvh
+
+    def block(width, split, m):
+        if not split:
+            return (0, width)
+        return (m * width // n_model, (m + 1) * width // n_model)
+
+    plans = []
+    for m in range(n_model):
+        q_own = block(h * hd, q_split, m)
+        h_lo, h_hi = q_own[0] // hd, -(-q_own[1] // hd)
+        k_lo, k_hi = h_lo // group, (h_hi - 1) // group + 1
+        nq, nk = h_hi - h_lo, k_hi - k_lo
+        idx = tuple((h_lo + i) // group - k_lo for i in range(nq))
+        natural = nq % nk == 0 and \
+            idx == tuple(i // (nq // nk) for i in range(nq))
+        plans.append(GQAShardPlan(q_own, block(kvh * hd, kv_split, m),
+                                  (h_lo, h_hi), (k_lo, k_hi),
+                                  None if natural else idx))
+    return plans
+
+
+def gqa_fwd_mesh(ps, xs: List[torch.Tensor], cfg: AttnConfig,
+                 plans: List[GQAShardPlan], comm, group: Sequence[int],
+                 positions: List[torch.Tensor]) -> List[torch.Tensor]:
+    """:func:`gqa_fwd` of one data replica over its model shards
+    ``group``: member ``j`` holds the replicated input ``xs[j]`` (B, S,
+    d_model), its slices ``ps[j]`` of the layer's weights as
+    ``plans[j]`` says, and its device's ``positions[j]``.  Each member
+    projects its columns, gets the whole heads it attends (pieces that
+    other members projected come by :meth:`MeshComm.regather`), runs the
+    ``flash_attention`` kernel on them, multiplies its part of the output
+    by its rows of ``wo``, and the partial products are summed over the
+    group (:meth:`MeshComm.all_reduce`) when ``wo``'s rows are split.
+    Returns each member's (B, S, d_model) output."""
+    hd = cfg.head_dim
+    q_split = plans[0].q_own != (0, cfg.n_heads * hd)
+
+    def cols(heads):
+        return (heads[0] * hd, heads[1] * hd)
+
+    qs = comm.regather([x @ p["wq"] for p, x in zip(ps, xs)], group,
+                       [pl.q_own for pl in plans],
+                       [cols(pl.heads) for pl in plans], 2, "qkv")
+    kvs = [comm.regather([x @ p[w] for p, x in zip(ps, xs)], group,
+                         [pl.kv_own for pl in plans],
+                         [cols(pl.kv_heads) for pl in plans], 2, "qkv")
+           for w in ("wk", "wv")]
+    outs = []
+    for p, pl, q, k, v, pos in zip(ps, plans, qs, kvs[0], kvs[1],
+                                   positions):
+        b, s, _ = q.shape
+        q, k, v = _heads(p, q.contiguous(), k.contiguous(), v.contiguous(),
+                         cfg, pos)
+        if pl.kv_index is not None:
+            idx = torch.tensor(pl.kv_index, device=k.device)
+            k, v = k.index_select(1, idx), v.index_select(1, idx)
+        o = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                            causal=cfg.causal, window=cfg.window,
+                            softcap=cfg.softcap)
+        o = o.transpose(1, 2).reshape(b, s, q.shape[1] * hd)
+        lo = pl.q_own[0] - pl.heads[0] * hd
+        outs.append(o[..., lo:lo + pl.q_own[1] - pl.q_own[0]] @ p["wo"])
+    return comm.all_reduce(outs, group, "attn") if q_split else outs
 
 
 def gqa_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
@@ -190,6 +304,18 @@ def init_mla(gen: Optional[torch.Generator], cfg: MLAConfig,
     p["wo"] = dense_init(gen, (h * cfg.v_head_dim, cfg.d_model), 0, dtype,
                          device)
     return p
+
+
+#: the reference's logical axes of the MLA leaves (``MLA_AXES``)
+MLA_AXES = {
+    "wq_a": ("embed", None),
+    "q_a_scale": (None,),
+    "wq_b": (None, "heads_x_dim"),
+    "wkv_a": ("embed", None),
+    "kv_a_scale": (None,),
+    "wkv_b": (None, "heads_x_dim"),
+    "wo": ("heads_x_dim", "embed"),
+}
 
 
 def _mla_project(p, x: torch.Tensor, cfg: MLAConfig,
@@ -308,6 +434,10 @@ def init_cross(gen: Optional[torch.Generator], cfg: AttnConfig,
     p["k_scale"] = torch.zeros((cfg.head_dim,), dtype=dtype, device=device)
     p["gate"] = torch.zeros((), dtype=dtype, device=device)
     return p
+
+
+#: the logical axes of the cross-attention leaves: GQA's and the 0-d gate
+CROSS_AXES = dict(GQA_AXES, gate=())
 
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -1,13 +1,14 @@
-"""Feed-forward variants: gated (SwiGLU / GeGLU) and plain MLPs.
+"""Feed-forward variants: gated (SwiGLU / GeGLU) and plain MLPs, on one
+device and tensor-parallel on a mesh.
 
-Port of ``repro/models/ffn.py`` for one device (no sequence-parallel
-sharding).
+Port of ``repro/models/ffn.py`` (without its sequence-parallel layout,
+which no dense config uses).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -53,9 +54,29 @@ def init_ffn(gen: Optional[torch.Generator], cfg: FFNConfig,
     }
 
 
+#: the reference's logical axes of the FFN leaves (``FFN_AXES``)
+FFN_AXES = {
+    "w_gate": ("embed", "mlp"),
+    "w_up": ("embed", "mlp"),
+    "w_down": ("mlp", "embed"),
+}
+
+
 def ffn_fwd(p, x: torch.Tensor, cfg: FFNConfig) -> torch.Tensor:
     if cfg.gated:
         h = _act(x @ p["w_gate"], cfg.activation) * (x @ p["w_up"])
     else:
         h = _act(x @ p["w_up"], cfg.activation)
     return h @ p["w_down"]
+
+
+def ffn_fwd_mesh(ps, xs: List[torch.Tensor], cfg: FFNConfig, split: bool,
+                 comm, group: Sequence[int]) -> List[torch.Tensor]:
+    """:func:`ffn_fwd` of one data replica over its model shards
+    ``group``: member ``j`` holds the replicated input ``xs[j]`` and its
+    slices ``ps[j]``; with ``split`` (``mlp`` on the model axis) those are
+    blocks of ``w_gate``'s and ``w_up``'s columns and of ``w_down``'s rows,
+    and the members' partial outputs are summed over the group
+    (:meth:`MeshComm.all_reduce`); else each holds the whole FFN."""
+    outs = [ffn_fwd(p, x, cfg) for p, x in zip(ps, xs)]
+    return comm.all_reduce(outs, group, "ffn") if split else outs

@@ -1,5 +1,8 @@
 """The composable LM, for the attention, MLA, cross-attention, MoE, Mamba2
-and xLSTM blocks, on one device.
+and xLSTM blocks, on one device (the dense GQA blocks also run on a mesh:
+:mod:`.sharded_lm`).  ``LM.param_axes`` gives the reference's logical axes
+of every leaf, in the reference's tree (``LM.reference_leaf`` maps each
+per-layer parameter to its stacked leaf and repeat).
 
 Port of ``repro/models/lm.py``.  An architecture is a repeating pattern of
 typed blocks plus an optional prelude.  The reference stacks each pattern
@@ -136,7 +139,7 @@ class ArchConfig:
     embed_scale: bool = False           # gemma: x *= sqrt(d)
     encoder_only: bool = False
     sub_quadratic: bool = False         # long_500k eligible
-    seq_parallel: bool = False          # read by no code: one device
+    seq_parallel: bool = False          # block weights replicated on a mesh
     dtype: Any = torch.bfloat16
 
     @property
@@ -218,6 +221,42 @@ def _apply_norm(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     if cfg.norm == "layer":
         return layer_norm(x, p["scale"], p["bias"])
     return rms_norm(x, p["scale"])
+
+
+_NORM_AXES = {"scale": (None,), "bias": (None,)}
+
+
+def block_axes(kind: str, cfg: Optional[ArchConfig] = None
+               ) -> Dict[str, Any]:
+    """The reference's logical axes of a block's leaves (a superset: a
+    LayerNorm's bias, the QK-norm scales); with ``cfg.seq_parallel`` every
+    axis replicated (its block weights are not split)."""
+    _check_kind(kind)
+    if kind in ("mamba", "mamba_shared"):
+        ax = {"ln1": _NORM_AXES, "mamba": mamba_mod.MAMBA2_AXES}
+    elif kind == "mlstm":
+        ax = {"ln1": _NORM_AXES, "mlstm": xlstm_mod.MLSTM_AXES}
+    elif kind == "slstm":
+        ax = {"ln1": _NORM_AXES, "slstm": xlstm_mod.SLSTM_AXES}
+    else:
+        attn = {"mla": attn_mod.MLA_AXES,
+                "xattn": attn_mod.CROSS_AXES}.get(kind, attn_mod.GQA_AXES)
+        ax = {"ln1": _NORM_AXES, "attn": attn, "ln2": _NORM_AXES}
+        if kind == "moe":
+            ax["moe"] = moe_mod.MOE_AXES
+        else:
+            ax["ffn"] = ffn_mod.FFN_AXES
+        if kind in ("attn_local", "attn_global"):
+            ax["post_ln1"] = _NORM_AXES
+            ax["post_ln2"] = _NORM_AXES
+    if cfg is not None and cfg.seq_parallel:
+        return _map_axes(lambda a: (None,) * len(a), ax)
+    return ax
+
+
+def _map_axes(fn, tree):
+    return {k: _map_axes(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
 
 
 def init_block(gen: Optional[torch.Generator], kind: str, cfg: ArchConfig,
@@ -499,6 +538,81 @@ class LM(nn.Module):
     def device(self) -> torch.device:
         """The device the parameters lie on (it follows ``.to()``)."""
         return self.embed.device
+
+    # ---- the reference's tree -----------------------------------------------
+    def reference_leaf(self, name: str) -> Tuple[Tuple[str, ...],
+                                                 Optional[int]]:
+        """The reference's path of the parameter ``name`` (a key of
+        ``named_parameters()``) and, for a layer of the repeated pattern,
+        its repeat: layer ``len(prelude) + r * len(pattern) + i`` is repeat
+        r of ``("stack", f"b{i}", ...)``, a prelude layer i is
+        ``("prelude", f"p{i}", ...)``."""
+        parts = tuple(name.split("."))
+        if parts[0] != "layers":
+            return parts, None
+        cfg = self.cfg
+        i, n_pre = int(parts[1]), len(cfg.prelude)
+        if i < n_pre:
+            return ("prelude", f"p{i}") + parts[2:], None
+        r, j = divmod(i - n_pre, len(cfg.pattern))
+        return ("stack", f"b{j}") + parts[2:], r
+
+    def _reference_tree(self, leaf) -> Dict[str, Any]:
+        """``leaf(name, ref_path, repeat)`` of every parameter, nested as
+        the reference's tree (each stacked leaf once, from repeat 0)."""
+        tree: Dict[str, Any] = {}
+        for name, _ in self.named_parameters():
+            path, r = self.reference_leaf(name)
+            if r:
+                continue
+            node = tree
+            for key in path[:-1]:
+                node = node.setdefault(key, {})
+            node[path[-1]] = leaf(name, path, r)
+        return tree
+
+    def param_shapes(self) -> Dict[str, Any]:
+        """The reference's parameter shapes, nested as its tree: a leaf of
+        the repeated pattern stacked over the repeats, ``(n_repeats,) +``
+        the layer's shape."""
+        params = dict(self.named_parameters())
+        r = self.cfg.n_repeats
+        return self._reference_tree(
+            lambda name, path, rep: ((r,) if rep is not None else ()) +
+            tuple(params[name].shape))
+
+    def param_axes(self, params=None) -> Dict[str, Any]:
+        """The reference's ``LM.param_axes``: the logical axes of every
+        leaf, nested as the reference's tree, the stacked leaves with a
+        leading ``layers`` axis.  With ``params`` (a tree of the
+        reference's structure) the result is pruned to its leaves."""
+        cfg = self.cfg
+        kinds = {("prelude", f"p{i}"): k for i, k in enumerate(cfg.prelude)}
+        kinds.update({("stack", f"b{i}"): k
+                      for i, k in enumerate(cfg.pattern)})
+
+        def axes(name, path, rep):
+            if path[0] in ("embed", "lm_head"):
+                return ("vocab", "embed")
+            if path[0] == "final_norm":
+                return _NORM_AXES[path[1]]
+            if path[0] == "shared_attn":
+                node, rest = block_axes("attn", cfg), path[1:]
+            else:
+                node, rest = block_axes(kinds[path[:2]], cfg), path[2:]
+            for key in rest:
+                node = node[key]
+            return (("layers",) if rep is not None else ()) + tuple(node)
+
+        tree = self._reference_tree(axes)
+        if params is None:
+            return tree
+
+        def walk(ax_node, p_node):
+            if isinstance(p_node, dict):
+                return {k: walk(ax_node[k], v) for k, v in p_node.items()}
+            return tuple(ax_node)
+        return walk(tree, params)
 
     # ---- forward -----------------------------------------------------------
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:

@@ -112,6 +112,27 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+#: the reference's logical axes of the Mamba2 leaves (``MAMBA2_AXES``)
+MAMBA2_AXES = {
+    "w_z": ("embed", "inner"),
+    "w_x": ("embed", "inner"),
+    "w_B": ("embed", None),
+    "w_C": ("embed", None),
+    "w_dt": ("embed", None),
+    "conv_x": (None, "inner"),
+    "conv_xb": ("inner",),
+    "conv_B": (None, None),
+    "conv_Bb": (None,),
+    "conv_C": (None, None),
+    "conv_Cb": (None,),
+    "dt_bias": (None,),
+    "a_log": (None,),
+    "d_skip": (None,),
+    "norm_scale": ("inner",),
+    "out_proj": ("inner", "embed"),
+}
+
+
 def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                  state: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -88,6 +88,17 @@ def init_moe(gen: Optional[torch.Generator], cfg: MoEConfig,
     return p
 
 
+#: the reference's logical axes of the MoE leaves (``MOE_AXES``)
+MOE_AXES = {
+    "router": ("embed", None),
+    "w_gate": ("expert", "embed", None),
+    "w_up": ("expert", "embed", None),
+    "w_down": ("expert", None, "embed"),
+    "shared": {"w_gate": ("embed", "mlp"), "w_up": ("embed", "mlp"),
+               "w_down": ("mlp", "embed")},
+}
+
+
 def _act(x: torch.Tensor, name: str) -> torch.Tensor:
     # the reference's jax.nn.gelu defaults to the tanh approximation
     return F.silu(x) if name == "silu" else F.gelu(x, approximate="tanh")

@@ -69,6 +69,22 @@ class XLSTMConfig:
         return self.d_inner // self.n_heads
 
 
+#: the reference's logical axes of the mLSTM leaves (``MLSTM_AXES``): the
+#: square wq / wk / wv row-parallel over the inner dimension
+MLSTM_AXES = {
+    "w_up": ("embed", "inner"), "conv_w": (None, "inner"),
+    "conv_b": ("inner",), "wq": ("inner", None), "wk": ("inner", None),
+    "wv": ("inner", None), "w_if": ("inner", None), "b_if": (None,),
+    "norm_scale": ("inner",), "w_down": ("inner", "embed"),
+}
+#: the reference's logical axes of the sLSTM leaves (``SLSTM_AXES``)
+SLSTM_AXES = {
+    "w_in": ("embed", "inner"), "r_heads": (None, None, None, None),
+    "bias": (None,), "norm_scale": (None,),
+    "w_ffn_up": ("embed", "mlp"), "w_ffn_down": ("mlp", "embed"),
+}
+
+
 def _normal(gen, shape, std, dtype, device) -> torch.Tensor:
     t = torch.empty(shape, dtype=torch.float32, device=device)
     t.normal_(0.0, 1.0, generator=gen)

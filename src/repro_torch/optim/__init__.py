@@ -1,10 +1,11 @@
 """Optimizer substrate: AdamW with schedules, global-norm clipping and
-int8 error-feedback gradient compression, on trees of tensors.  The
-reference's ZeRO-1 optimizer-state sharding (``zero1_spec``) shards over a
-mesh of several devices and is not ported yet (ROADMAP A3.4)."""
+int8 error-feedback gradient compression, on trees of tensors; on a mesh,
+AdamW with the reference's ZeRO-1 optimizer-state sharding
+(``zero1_spec``)."""
 
 from .adamw import (AdamWConfig, adamw_init, adamw_update, global_norm,
-                    clip_by_global_norm)
+                    clip_by_global_norm, zero1_spec, adamw_init_mesh,
+                    adamw_update_mesh, gather_opt_mesh, split_opt_mesh)
 from .schedules import cosine_schedule, linear_warmup
 from .compression import (compress_int8, decompress_int8,
                           make_error_feedback_state, ef_compress_update)
@@ -12,4 +13,5 @@ from .compression import (compress_int8, decompress_int8,
 __all__ = ["AdamWConfig", "adamw_init", "adamw_update", "global_norm",
            "clip_by_global_norm", "cosine_schedule", "linear_warmup",
            "compress_int8", "decompress_int8", "make_error_feedback_state",
-           "ef_compress_update"]
+           "ef_compress_update", "zero1_spec", "adamw_init_mesh",
+           "adamw_update_mesh", "gather_opt_mesh", "split_opt_mesh"]
