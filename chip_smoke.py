@@ -138,16 +138,28 @@ data, ZeRO-1), the same batch 4 x 4096 for 2 steps: ms per step,
 tokens/s, peak memory, the bytes each collective moves per step, and the
 flash forward and backward launches of its 4 shards, counted and
 checked; one layer in float32 trains 2 steps on the mesh and on one
-device of the card, from the same weights, compared.
+device of the card, from the same weights, compared.  Then
+``phase_train_sharded_mla_xattn`` on the same mesh and batch, bf16:
+minicpm3-4b at full width and 16 of its 62 layers (MLA head parallel in
+plain ops, no flash launch; its third step profiled, and the device
+time of its float32 attention core's kernels, forward and backward, read
+from that profile for its share of the step) and
+llama-3.2-vision-11b at one pattern unit (4 GQA layers on the flash
+kernels, 32 forward and 16 backward launches a step, and a gated
+cross-attention layer over 1600 seeded patch embeddings, the gates
+opened to 0.5), each then in float32 (one MLA layer; the whole unit)
+on the mesh against one device.
 ``flash_attention``'s checks end with ``phase_flash_backward_checks``:
-dq, dk and dv of the backward kernels against autograd of the plain version at every head dim, S 1000
-and 77, GQA 1/2/4, the masks and the cap, float32 and bfloat16 (the
-bfloat16 ones on the tensor-core kernels), repeat backward launches
-bit-identical, the forward's out unchanged by asking for its row
-statistics, and a negative control; the backward is timed at
-stablelm's train shape (``phase_flash_bwd_times``) against its bound, the
-plain version's autograd and torch's ``scaled_dot_product_attention``
-backward (the yardstick only).  Each phase's seconds are printed, and the
+dq, dk and dv of the backward kernels against autograd of the plain
+version at every head dim, S 1000 and 77, GQA 1/2/4, the masks and the
+cap, float32 and bfloat16 (the bfloat16 ones on the tensor-core kernels),
+repeat backward launches bit-identical, the forward's out unchanged by
+asking for its row statistics, and a negative control; then one shard of
+llama-vision's mesh train shape (2 x 4096, 16 / 4 heads, D 128, bfloat16,
+causal); the backward is timed at stablelm's train shape
+(``phase_flash_bwd_times``) against its bound, the plain version's
+autograd and torch's ``scaled_dot_product_attention`` backward (the
+yardstick only).  Each phase's seconds are printed, and the
 total.
 
 Each path is run with the kernel counters set to 0 just before it and read
@@ -2090,7 +2102,8 @@ def phase_flash_backward_checks():
     against torch.logsumexp of the plain scores and its float32 out
     against the plain one.  At D 256, GQA 2, bfloat16, the plain version's
     gradients with the window, the causal mask or the cap dropped must
-    fall outside the band."""
+    fall outside the band.  Then the same checks at the train shapes of
+    FLASH_BWD_TRAIN_SHAPES (``_flash_backward_train_shapes``)."""
     import torch
     from repro_torch import kernels
     from repro_torch.kernels.flash_attention import (HEAD_DIMS,
@@ -2171,6 +2184,63 @@ def phase_flash_backward_checks():
         + f"; repeat backward launches bit-identical ({bwd} backward "
         f"launches, the {bwd_wgmma} bfloat16 ones on the tensor cores); out "
         "with lse bit-equal to out without")
+    _flash_backward_train_shapes(gen)
+
+
+#: the backward's train shapes that its cases above do not reach: (B, Hq,
+#: Hkv, S, D) of one shard of llama-3.2-vision-11b on the (data 2, model
+#: 2) mesh (batch 4 x 4096 split over the data axis, its 32 / 8 heads over
+#: the model axis; causal, no window or cap)
+FLASH_BWD_TRAIN_SHAPES = {"llama-3.2-vision-11b shard": (2, 16, 4, 4096,
+                                                         128)}
+
+
+def _flash_backward_train_shapes(gen) -> None:
+    """The forward with lse and the backward kernels at each of
+    FLASH_BWD_TRAIN_SHAPES, bfloat16, causal: dq, dk, dv against autograd
+    of the plain version at FLASH_GRAD_TOL, the out with lse bit-equal to
+    the out without, lse and the float32 out against the plain ones, and
+    the backward launched once, on the tensor cores."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    dtype = torch.bfloat16
+    for what, (b, hq, hkv, s, d) in FLASH_BWD_TRAIN_SHAPES.items():
+        q, k, v, d_out = (
+            (torch.randn((b, h, s, d), generator=gen, device="cuda")
+             * c).to(dtype)
+            for h, c in ((hq, FLASH_Q_SCALE), (hkv, 1.0), (hkv, 1.0),
+                         (hq, 1.0)))
+        tag = (f"{what} (B {b}, Hq/Hkv {hq}/{hkv}, S {s}, D {d}) bfloat16 "
+               "causal")
+        kernels.reset_counters()
+        out, got = _kernel_grads(q, k, v, d_out, True, None, None)
+        torch.cuda.synchronize()
+        launches = (flash_attention_cuda.bwd_launches,
+                    flash_attention_cuda.bwd_wgmma_launches)
+        if launches != (1, 1):
+            raise AssertionError(f"flash_attention {tag}: backward launches "
+                                 f"{launches}, expected one, on the tensor "
+                                 "cores")
+        want = _plain_grads(q, k, v, d_out, True, None, None)
+        checks = [(name, a, w, _grad_band(w, dtype))
+                  for name, a, w in zip(("dq", "dk", "dv"), got, want)]
+        del want
+        checks += _forward_lse_checks(q, k, v, out, True, None, None, tag)
+        errs = {}
+        for key, a, w, band in checks:
+            n_bad = outside_band(a, w, *band)
+            errs[key] = float((a.float() - w.float()).abs().max())
+            if n_bad or not bool(torch.isfinite(a).all()):
+                raise AssertionError(
+                    f"flash_attention {tag}: {key} {n_bad} of {a.numel()} "
+                    f"outside rtol, atol {band} (max |err| {errs[key]:.3g})")
+        log(f"  {tag}: dq, dk, dv within band, out with lse bit-equal to "
+            "out without, lse and the float32 out within theirs; max |err| "
+            + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+            + "; the backward on the tensor cores")
+        del q, k, v, d_out, out, got, checks
+        torch.cuda.empty_cache()
 
 
 def _forward_lse_checks(q, k, v, out, causal, window, softcap, tag):
@@ -2486,11 +2556,13 @@ def phase_lm_consistency(name: str, seed: int, layers: int = 4, n: int = 32,
 def _device_rows(prof):
     """(ms, launches, name) of each kernel in a torch.profiler window: the
     CUDA events' self time, summed (the operators that launch them are not
-    counted again)."""
+    counted again; a record_function range's span on the device, such as
+    MLA_RANGE's, is no kernel and is left out)."""
     from torch.autograd import DeviceType
     rows = []
     for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
+        if ev.device_type != DeviceType.CUDA or ev.key == MLA_RANGE or \
+                getattr(ev, "is_user_annotation", False):
             continue
         t = getattr(ev, "self_device_time_total", None)
         if t is None:
@@ -3035,11 +3107,32 @@ def phase_train_sharded(seed: int, smi):
 
     cfg = dataclasses.replace(cfg, name=f"{name}-layer", n_layers=1,
                               dtype=torch.float32)
+    _mesh_vs_one_device(cfg, mesh,
+                        lambda: _unit_model(cfg, seed + 8, "cuda"), seed,
+                        "1 float32 layer")
+    torch.cuda.empty_cache()
+    log(f"  sharded train phase {time.perf_counter() - t_phase:.1f} s")
+    return timings
+
+
+def _mesh_vs_one_device(cfg, mesh, make, seed: int, what: str) -> dict:
+    """2 float32 train steps (``launch/train.py``, batch TRAIN_CHECK_BATCH x
+    TRAIN_CHECK_SEQ) of a ``ShardedLM`` on ``mesh`` against 2 of the
+    single-device trainer on the card, each from a model ``make()`` gives
+    (the same weights each call), each run's launches counted from 0 and
+    checked (``_check_train_counts``): losses and gradient norms rtol
+    SHARDED_RTOL, parameters rtol PARAM_RTOL atol PARAM_ATOL.  Returns the
+    worst relative errors and the parameters' max |err|."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.launch.train import train
+    from repro_torch.models.sharded_lm import ShardedLM
+    shards = len(mesh.devices.flat)
     kw = dict(steps=2, batch=TRAIN_CHECK_BATCH, seq=TRAIN_CHECK_SEQ,
               seed=seed, verbose=False)
     runs = {}
     for where in ("one device", "mesh"):
-        m = _unit_model(cfg, seed + 8, "cuda")
+        m = make()
         if where == "mesh":
             m = ShardedLM(m, mesh)
         hist = []
@@ -3047,44 +3140,258 @@ def phase_train_sharded(seed: int, smi):
         _, _, unit_losses = train(model=m, history=hist, **kw)
         _check_train_counts(cfg, 2, f"train {cfg.name} on {where}",
                             shards if where == "mesh" else 1)
-        params = m.gather() if where == "mesh" else \
-            {n: p.detach().cpu() for n, p in m.named_parameters()}
+        # compared on the card: llama-vision's unit is 1.6 B parameters
+        params = m.gather(m.device) if where == "mesh" else \
+            {n: p.detach().clone() for n, p in m.named_parameters()}
         runs[where] = (params, unit_losses, [h["grad_norm"] for h in hist])
+        del m
+        torch.cuda.empty_cache()
+    if not all(g > 0 for g in runs["mesh"][2]):
+        raise AssertionError(f"train {cfg.name} on the mesh: grad norms "
+                             f"{runs['mesh'][2]}")
     rel = {}
-    for i, what in ((1, "losses"), (2, "grad norms")):
+    for i, key in ((1, "losses"), (2, "grad norms")):
         got, want = runs["mesh"][i], runs["one device"][i]
-        rel[what] = max(abs(a - b) / abs(b) for a, b in zip(got, want))
-        if rel[what] > SHARDED_RTOL:
-            raise AssertionError(f"train on the mesh vs one device: {what} "
-                                 f"{got} vs {want}")
+        rel[key] = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        if rel[key] > SHARDED_RTOL:
+            raise AssertionError(f"train {cfg.name} on the mesh vs one "
+                                 f"device: {key} {got} vs {want}")
     worst = 0.0
     for pname, a in runs["one device"][0].items():
         b = runs["mesh"][0][pname]
         err = (b - a).abs()
         bad = err > PARAM_ATOL + PARAM_RTOL * a.abs()
         if bool(bad.any()):
-            raise AssertionError(f"train on the mesh vs one device: {pname}, "
-                                 f"{int(bad.sum())} parameters outside "
-                                 f"rtol {PARAM_RTOL} atol {PARAM_ATOL}")
+            raise AssertionError(f"train {cfg.name} on the mesh vs one "
+                                 f"device: {pname}, {int(bad.sum())} "
+                                 f"parameters outside rtol {PARAM_RTOL} "
+                                 f"atol {PARAM_ATOL}")
         worst = max(worst, float(err.max()))
-    log(f"  mesh vs one device on the card, 1 float32 layer, batch "
+    log(f"  mesh vs one device on the card, {what}, batch "
         f"{TRAIN_CHECK_BATCH} x {TRAIN_CHECK_SEQ}, 2 steps: losses "
         f"{[round(v, 6) for v in runs['mesh'][1]]} (max rel err "
         f"{rel['losses']:.2e}), grad norms max rel err "
         f"{rel['grad norms']:.2e} (rtol {SHARDED_RTOL}), parameters max "
         f"|err| {worst:.2e} (rtol {PARAM_RTOL}, atol {PARAM_ATOL})")
-    del runs
-    torch.cuda.empty_cache()
-    log(f"  sharded train phase {time.perf_counter() - t_phase:.1f} s")
-    return timings
+    return {"losses_rel": rel["losses"], "norms_rel": rel["grad norms"],
+            "param_err": worst}
 
 
-def _profile_train_step(model, opt_state, steps: int, seed: int) -> None:
+#: the MLA / cross-attention configs on the (data 2, model 2) mesh: (layers
+#: of the bf16 run at full width, layers of the float32 mesh-vs-one-device
+#: check).  minicpm3-4b: 16 of its 62 layers (1.20 B parameters, its state
+#: at full depth does not fit the card with four shards' copies);
+#: llama-3.2-vision-11b: one pattern unit (4 attn + 1 xattn, 1.62 B
+#: parameters, most of them the 128256-row embedding)
+SHARDED_MLA_XATTN_RUNS = {"minicpm3-4b": (16, 1),
+                          "llama-3.2-vision-11b": (5, 5)}
+
+
+#: the record_function range around MLA's attention core (``_mla_attend``)
+#: in minicpm3-4b's profiled mesh step
+MLA_RANGE = "mla_attend"
+
+
+def _range_device_ms(prof, name: str) -> tuple:
+    """Device time of the kernels a torch.profiler window ran for the
+    record_function range ``name``: those launched inside the range (its
+    forward passes, remat's recompute included), and those of the autograd
+    nodes that the ops inside it made (their backward), each node matched
+    to the op by the forward thread and sequence number the profiler
+    records.  Each kernel counts once, for the range or backward node
+    nearest around its launch.  Returns (forward ms, backward ms, the
+    backward nodes' names)."""
+    from torch.autograd import DeviceType
+    node = "autograd::engine::evaluate_function: "
+    roots = [e for e in prof.events()
+             if e.device_type == DeviceType.CPU and e.cpu_parent is None]
+
+    def walk():
+        # (event, its nearest mark: "range", a backward node event, None)
+        todo = [(e, None) for e in roots]
+        while todo:
+            e, mark = todo.pop()
+            if e.name == name:
+                mark = "range"
+            elif e.name.startswith(node):
+                mark = e
+            yield e, mark
+            todo.extend((c, mark) for c in e.cpu_children)
+    made = set()
+    spent = []
+    for e, mark in walk():
+        if mark == "range" and e.sequence_nr >= 0:
+            made.add((e.thread, e.sequence_nr))
+        if e.kernels and mark is not None:
+            spent.append((sum(k.duration for k in e.kernels), mark))
+    fwd = bwd = 0.0
+    names = set()
+    for us, mark in spent:
+        if mark == "range":
+            fwd += us
+        elif (mark.fwd_thread, mark.sequence_nr) in made:
+            bwd += us
+            names.add(mark.name[len(node):])
+    return fwd / 1e3, bwd / 1e3, sorted(names)
+
+
+def _profile_mla_share(sharded, opt_state, steps: int, seed: int,
+                       warm_ms: float) -> dict:
+    """minicpm3's profiled warm step (``_profile_train_step``) with each
+    call of MLA's attention core inside a MLA_RANGE range: the device ms
+    of its kernels, forward and backward (``_range_device_ms``), and
+    their share of the step's device busy time, of its wall time and of
+    the unprofiled warm step's ``warm_ms``."""
+    import torch
+    from repro_torch.models import attention as attn_mod
+    attend = attn_mod._mla_attend
+
+    def marked(*args, **kw):
+        with torch.profiler.record_function(MLA_RANGE):
+            return attend(*args, **kw)
+    attn_mod._mla_attend = marked
+    try:
+        prof, wall = _profile_train_step(sharded, opt_state, steps, seed)
+    finally:
+        attn_mod._mla_attend = attend
+    t0 = time.perf_counter()
+    busy = sum(r[0] for r in _device_rows(prof))
+    fwd, bwd, names = _range_device_ms(prof, MLA_RANGE)
+    read_s = time.perf_counter() - t0
+    if not (fwd > 0 and bwd > 0):
+        log(f"  MLA attention core's share: not measured (the profile "
+            f"gave {fwd:.1f} ms forward, {bwd:.1f} ms backward)")
+        return {}
+    log(f"  MLA attention core (float32, ``_mla_attend``) in the profiled "
+        f"step: forward and remat recompute {fwd:.1f} ms, backward "
+        f"{bwd:.1f} ms ({', '.join(names)}); {fwd + bwd:.1f} ms, "
+        f"{100 * (fwd + bwd) / busy:.1f} % of the device's busy "
+        f"{busy:.1f} ms, {100 * (fwd + bwd) / wall:.1f} % of the step's "
+        f"wall {wall:.1f} ms, {100 * (fwd + bwd) / warm_ms:.1f} % of the "
+        f"unprofiled warm step's {warm_ms:.1f} ms (read from the profile "
+        f"in {read_s:.1f} s)")
+    return {"mla_attention_ms": fwd + bwd, "mla_attention_fwd_ms": fwd,
+            "mla_attention_bwd_ms": bwd, "busy_ms": busy,
+            "profiled_wall_ms": wall,
+            "mla_attention_share": (fwd + bwd) / busy}
+
+
+def phase_train_sharded_mla_xattn(seed: int, smi):
+    """The sharded training path of the MLA and cross-attention kinds
+    (``ShardedLM``'s head-parallel ``mla_fwd_mesh`` and ``cross_fwd_mesh``,
+    the image context split with the batch) on the (data 2, model 2) mesh
+    of four ``cuda:0`` shards, ZeRO-1, train_4k cut to the global batch 4 x
+    4096, bf16, 2 steps (cold, then warm), for minicpm3-4b and
+    llama-3.2-vision-11b at full width and SHARDED_MLA_XATTN_RUNS' depth
+    (llama-vision's gates opened to XATTN_GATE before the split, its 1600
+    seeded patch embeddings a step from the trainer): ms per step,
+    tokens/s, peak memory, the bytes each collective moves per step, every
+    loss and gradient norm finite and every norm > 0, and the flash
+    launches of the 4 shards (``_check_train_counts``: none for MLA, two
+    forward and one backward per GQA layer and shard a step, on the
+    tensor cores; no plain call).  minicpm3's third (warm) step under
+    torch.profiler (device time by kernel, idle share), and the device
+    time of its float32 MLA attention core's kernels in that step, forward
+    and backward, and their share of the step (``_profile_mla_share``).
+    Then each config at its check depth in float32, gates
+    open: 2 steps on the mesh against 2 of the single-device trainer from
+    the same weights (``_mesh_vs_one_device``).  Returns per config the
+    timings and the flash forward (``fwd``) and backward (``bwd``)
+    launches of its bf16 run."""
+    import dataclasses
+    import math
+    import torch
+    from repro_torch import configs, kernels
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import train
+    from repro_torch.models.lm import LM
+    from repro_torch.models.sharded_lm import ShardedLM
+    steps = 2
+    shards = SHARDED_DATA * SHARDED_MODEL
+    mesh = make_host_mesh(SHARDED_MODEL, devices=["cuda:0"] * shards)
+    out = {}
+    for name, (layers, check_layers) in SHARDED_MLA_XATTN_RUNS.items():
+        t0 = time.perf_counter()
+        full = configs.get_config(name)
+        cfg = dataclasses.replace(full, n_layers=layers)
+        log(f"== train on a mesh: {name} at full width, {layers} of its "
+            f"{full.n_layers} layers (card: {smi}); (data {SHARDED_DATA}, "
+            f"model {SHARDED_MODEL}) of {shards} cuda:0 shards, ZeRO-1; "
+            f"global batch {TRAIN_BATCH} x {TRAIN_SEQ}, {steps} steps at lr "
+            "3e-4; remat per pattern unit")
+        model = LM(cfg, device="cuda", generator=torch.Generator(
+            device="cuda").manual_seed(seed))
+        gates = model.set_xattn_gates(XATTN_GATE)
+        n = sum(p.numel() for p in model.parameters())
+        sharded = ShardedLM(model, mesh)
+        del model
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_counters()
+        sharded.comm.reset_bytes()
+        hist = []
+        _, opt_state, losses = train(
+            model=sharded, steps=steps, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+            lr=3e-4, seed=seed, verbose=False, history=hist)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        got = _check_train_counts(cfg, steps, f"train {name} on the mesh",
+                                  shards)
+        norms = [h["grad_norm"] for h in hist]
+        ms = [1e3 * h["seconds"] for h in hist]
+        if len(losses) != steps or not all(
+                math.isfinite(v) for v in losses + norms) or \
+                not all(g > 0 for g in norms):
+            raise AssertionError(f"train {name} on the mesh: losses "
+                                 f"{losses}, grad norms {norms}")
+        per_step = {k: v // steps
+                    for k, v in sorted(sharded.comm.bytes.items())}
+        rate = TRAIN_BATCH * TRAIN_SEQ / ms[-1] * 1e3
+        log(f"  {n / 1e9:.3f} B parameters"
+            + (f", {gates} cross-attention gates at {XATTN_GATE}" if gates
+               else "")
+            + f"; ms per step {[round(m, 1) for m in ms]} (the first cold), "
+            f"{rate:.0f} tokens/s at the last step, peak device memory "
+            f"{peak:.2f} GiB; losses {[round(v, 4) for v in losses]}; grad "
+            f"norms {[round(g, 4) for g in norms]}; launches {got} (forward, "
+            "tensor-core forward, backward, tensor-core backward; 4 shards), "
+            "no plain call")
+        log(f"  bytes between shards per step, by collective: {per_step} "
+            f"({sum(per_step.values()) / 2**30:.2f} GiB in all)")
+        res = {"ms": ms, "tokens_per_s": rate, "peak_gib": peak,
+               "losses": losses, "grad_norms": norms, "bytes": per_step,
+               "fwd": got["launches"], "bwd": got["bwd"]}
+        if "mla" in cfg.layer_kinds:
+            res.update(_profile_mla_share(sharded, opt_state, steps, seed,
+                                          ms[-1]))
+        del sharded, opt_state
+        torch.cuda.empty_cache()
+        ccfg = dataclasses.replace(full, name=f"{name}-check",
+                                   n_layers=check_layers,
+                                   dtype=torch.float32)
+
+        def make(ccfg=ccfg):
+            m = LM(ccfg, device="cuda", generator=torch.Generator(
+                device="cuda").manual_seed(seed + 8))
+            m.set_xattn_gates(XATTN_GATE)
+            return m
+        res.update(_mesh_vs_one_device(
+            ccfg, mesh, make, seed, f"{check_layers} float32 layer"
+            + ("s" if check_layers > 1 else "")))
+        torch.cuda.empty_cache()
+        log(f"  {name} on the mesh: {time.perf_counter() - t0:.1f} s")
+        out[name] = res
+    return out
+
+
+def _profile_train_step(model, opt_state, steps: int, seed: int) -> tuple:
     """One more train step of ``model`` (an ``LM`` or a ``ShardedLM``, whose
     step takes the global batch) from ``opt_state`` (warm: the kernels are
     built and the allocator's pools filled by the steps before) on the
     next batch of the run's token pipeline, under torch.profiler: where
-    the step's device time goes, by kernel, and the idle share."""
+    the step's device time goes, by kernel, and the idle share.  Returns
+    the profile and the step's wall ms."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.data import TokenPipeline, TokenPipelineConfig
@@ -3104,6 +3411,7 @@ def _profile_train_step(model, opt_state, steps: int, seed: int) -> None:
         ms, _ = once_ms(lambda: step_fn(opt_state, tokens, labels))
     _device_report(prof, ms, f"{cfg.name} train step {steps + 1} (warm, "
                    "under torch.profiler)", top=12)
+    return prof, ms
 
 
 def phase_flash_bwd_times(launches: int):
@@ -3956,12 +4264,14 @@ def main(argv=None) -> int:
     train_lm = timed("train stablelm-1.6b", phase_train, "stablelm-1.6b",
                      args.seed, smi, profile=True)
     train_mesh = timed("train_sharded", phase_train_sharded, args.seed, smi)
+    train_mx = timed("train_sharded_mla_xattn",
+                     phase_train_sharded_mla_xattn, args.seed, smi)
+    trains = [train_xlstm, train_lm, train_mesh] + list(train_mx.values())
     log(f"== flash_attention backward times at stablelm-1.6b's train shape "
         f"(card: {smi})")
     rows.append(timed("flash_bwd_times", phase_flash_bwd_times,
-                      train_xlstm["bwd"] + train_lm["bwd"] +
-                      train_mesh["bwd"]))
-    train_fwd = train_xlstm["fwd"] + train_lm["fwd"] + train_mesh["fwd"]
+                      sum(t["bwd"] for t in trains)))
+    train_fwd = sum(t["fwd"] for t in trains)
     flash_row["launches"] += zoo_launches + train_fwd
     for tag, timing in zoo_shapes.items():
         _add_flash_shape(flash_row, tag, timing)

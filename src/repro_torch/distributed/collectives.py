@@ -30,8 +30,9 @@ stream; autograd runs each backward node on the stream of its forward,
 and a copy between devices orders both devices' current streams.
 
 :attr:`MeshComm.bytes` counts the bytes copied from one shard to another,
-by kind (``embed``, ``qkv``, ``attn``, ``ffn``, ``loss``, ``grad``,
-``param``), backward passes and remat recomputes included.
+by kind (``embed``, ``qkv``, ``attn``, ``ffn``, ``seq``, ``loss``,
+``logits``, ``grad``, ``param``), backward passes and remat recomputes
+included.
 """
 
 from __future__ import annotations

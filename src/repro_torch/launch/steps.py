@@ -17,10 +17,11 @@ callable that makes the optimizer state.
     step = build_train_step(cfg, batch=4, seq=4096, mesh=mesh, zero1=True)
 
 With ``mesh=`` the train and prefill steps run on a
-:class:`~repro_torch.models.sharded_lm.ShardedLM` (the dense GQA configs:
-tensor parallel over ``model``, data parallel over ``data``, ZeRO-1 when
-``zero1``); the global batch is split in row blocks over the data
-replicas.  :func:`cache_shardings` (the decode caches' layout) and
+:class:`~repro_torch.models.sharded_lm.ShardedLM` (the dense GQA, MLA and
+cross-attention configs: tensor parallel over ``model``, data parallel
+over ``data``, ZeRO-1 when ``zero1``); the global batch, and a VLM's
+image context with it, is split in row blocks over the data replicas.
+:func:`cache_shardings` (the decode caches' layout) and
 :func:`opt_shardings` give the reference's layouts; sharded decode does
 not run yet (ROADMAP A3.4).
 

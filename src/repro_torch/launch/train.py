@@ -1,7 +1,8 @@
 """The trainer: any registered arch (reduced or full config) on one
-device, or a dense GQA config on a mesh, with the fault-tolerance
-substrate wired in -- deterministic data, async checkpoints, the
-preemption hook, the straggler watchdog, elastic restore.
+device, or a dense GQA, MLA or cross-attention config on a mesh, with the
+fault-tolerance substrate wired in -- deterministic data, async
+checkpoints, the preemption hook, the straggler watchdog, elastic
+restore.
 
 Port of ``repro/launch/train.py``.  It runs on the current CUDA device
 unless ``device="cpu"`` (``--device cpu``) is passed; with ``model_axis``
@@ -9,13 +10,18 @@ unless ``device="cpu"`` (``--device cpu``) is passed; with ``model_axis``
 (data, model) mesh ``make_host_mesh(model_axis, devices)`` (every GPU
 when ``devices`` is None; a device may repeat, as the reference's forced
 host devices stand in for a pod), tensor parallel over ``model``, data
-parallel over ``data``, with ZeRO-1 (:class:`ShardedLM`; the dense GQA
-configs).  On the card a GQA layer's attention and its gradient run the
-hand-written kernels (the forward with its row statistics, then the
-backward kernels for dq, dk and dv), on every shard; on the CPU the plain
-attention runs and autograd differentiates it.  On one 80 GB card
-stablelm-1.6b and xlstm-350m train at full width and depth, and
-stablelm-1.6b on a (data 2, model 2) mesh of four ``cuda:0`` shards.
+parallel over ``data``, with ZeRO-1 (:class:`ShardedLM`: every config
+whose kinds are in its ``MESH_KINDS``, the dense GQA configs, minicpm3-4b
+and llama-3.2-vision-11b, whose seeded image context is split over the
+data replicas with the tokens).  On the card a GQA layer's attention and
+its gradient run the hand-written kernels (the forward with its row
+statistics, then the backward kernels for dq, dk and dv), on every shard;
+MLA and cross-attention run in plain ops, as the reference's; on the CPU
+the plain attention runs and autograd differentiates it.  On one 80 GB
+card stablelm-1.6b and xlstm-350m train at full width and depth, and on
+a (data 2, model 2) mesh of four ``cuda:0`` shards stablelm-1.6b at full
+depth, minicpm3-4b at 16 of its 62 layers and llama-3.2-vision-11b at one
+pattern unit (their state at full depth does not fit one card).
 Checkpoints hold the full logical leaves, whatever the mesh: a run
 resumes on its own mesh bit for bit, and on another mesh (or one device)
 within float32's rounding.
@@ -29,6 +35,10 @@ Usage::
     PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b \\
         --steps 3 --batch 4 --seq 4096 --model-axis 2 \\
         --devices cuda:0,cuda:0,cuda:0,cuda:0
+    # reduced llama-3.2-vision-11b on a (2, 2) CPU mesh, image context and all
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch llama-3.2-vision-11b --reduced --steps 20 --batch 4 --seq 16 \\
+        --model-axis 2 --devices cpu,cpu,cpu,cpu --ckpt-dir build/ckpt_vlm
     # CPU smoke
     PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-350m \\
         --reduced --steps 50 --batch 8 --seq 128 --device cpu \\

@@ -3,10 +3,12 @@ window, soft-cap, QK-norm), MLA (minicpm3's latent KV) and gated
 cross-attention (llama-3.2-vision's image layers).  Each has an init, a
 full-sequence pass (prefill) and a one-token decode (cross-attention has no
 cache: it re-projects the image context every step, as the reference).
-GQA's full-sequence pass also runs on the model shards of a mesh
-(:func:`gqa_fwd_mesh`, heads split by the reference's ``heads_x_dim`` and
-``kv_x_dim`` columns); each module keeps the reference's logical axes of
-its leaves (``GQA_AXES``, ``MLA_AXES``).
+Each full-sequence pass also runs on the model shards of a mesh, head
+parallel (:func:`gqa_fwd_mesh`, :func:`mla_fwd_mesh`,
+:func:`cross_fwd_mesh`: heads split by the reference's ``heads_x_dim``
+and ``kv_x_dim`` columns, one all-reduce of the ``wo`` partials); each
+module keeps the reference's logical axes of its leaves (``GQA_AXES``,
+``MLA_AXES``, ``CROSS_AXES``).
 
 Port of ``repro/models/attention.py``.  The reference picks its GQA
 full-sequence attention with ``AttnConfig.use_flash``: the Pallas kernel
@@ -30,9 +32,15 @@ reference computes them in plain jnp ops and never reaches a Pallas kernel:
 :func:`mla_fwd` is the reference's expanded causal attention over query
 chunks, :func:`mla_decode` its weight-absorbed form on the latent cache,
 and :func:`cross_fwd` calls :func:`_sdpa`, the counterpart of the
-reference's ``_sdpa`` (non-causal, Sq != Skv).  The reference's
-``MLAConfig.seq_parallel`` only chooses a sharding, so the port's
-``MLAConfig`` leaves it out (one device).
+reference's ``_sdpa`` (non-causal, Sq != Skv).  On a mesh MLA is head
+parallel whatever the reference's ``FLAGS["mla_seq_parallel"]`` says: that
+flag only constrains the query rows' layout, the function is the same,
+and the weights already lie split by heads, so one all-reduce and no
+weight regather computes it.  The reference's ``MLAConfig.seq_parallel``
+(its ``ArchConfig.seq_parallel``, which replicates the block weights) is
+read by :class:`~repro_torch.models.sharded_lm.ShardedLM`, which then runs
+each model shard's block of query rows (``mla_fwd(..., rows=)``); the
+port's ``MLAConfig`` leaves the field out.
 """
 
 from __future__ import annotations
@@ -192,33 +200,55 @@ def gqa_fwd_mesh(ps, xs: List[torch.Tensor], cfg: AttnConfig,
     Returns each member's (B, S, d_model) output."""
     hd = cfg.head_dim
     q_split = plans[0].q_own != (0, cfg.n_heads * hd)
-
-    def cols(heads):
-        return (heads[0] * hd, heads[1] * hd)
-
-    qs = comm.regather([x @ p["wq"] for p, x in zip(ps, xs)], group,
-                       [pl.q_own for pl in plans],
-                       [cols(pl.heads) for pl in plans], 2, "qkv")
-    kvs = [comm.regather([x @ p[w] for p, x in zip(ps, xs)], group,
-                         [pl.kv_own for pl in plans],
-                         [cols(pl.kv_heads) for pl in plans], 2, "qkv")
-           for w in ("wk", "wv")]
+    qs, ks, vs = _gather_heads(comm, group, plans, hd,
+                               *([x @ p[w] for p, x in zip(ps, xs)]
+                                 for w in ("wq", "wk", "wv")))
     outs = []
-    for p, pl, q, k, v, pos in zip(ps, plans, qs, kvs[0], kvs[1],
-                                   positions):
+    for p, pl, q, k, v, pos in zip(ps, plans, qs, ks, vs, positions):
         b, s, _ = q.shape
         q, k, v = _heads(p, q.contiguous(), k.contiguous(), v.contiguous(),
                          cfg, pos)
-        if pl.kv_index is not None:
-            idx = torch.tensor(pl.kv_index, device=k.device)
-            k, v = k.index_select(1, idx), v.index_select(1, idx)
+        k, v = _kv_for_group(pl, k, v)
         o = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                             causal=cfg.causal, window=cfg.window,
                             softcap=cfg.softcap)
-        o = o.transpose(1, 2).reshape(b, s, q.shape[1] * hd)
-        lo = pl.q_own[0] - pl.heads[0] * hd
-        outs.append(o[..., lo:lo + pl.q_own[1] - pl.q_own[0]] @ p["wo"])
+        outs.append(_wo_partial(p, pl, o, hd))
     return comm.all_reduce(outs, group, "attn") if q_split else outs
+
+
+def _gather_heads(comm, group, plans: List[GQAShardPlan], hd: int,
+                  q_parts, k_parts, v_parts):
+    """Each member's projected columns (its ``q_own`` of q, ``kv_own`` of
+    k and v) regathered into the whole heads it attends (``heads``,
+    ``kv_heads``; :meth:`MeshComm.regather`): (qs, ks, vs)."""
+    def cols(heads):
+        return (heads[0] * hd, heads[1] * hd)
+
+    qs = comm.regather(q_parts, group, [pl.q_own for pl in plans],
+                       [cols(pl.heads) for pl in plans], 2, "qkv")
+    ks, vs = (comm.regather(parts, group, [pl.kv_own for pl in plans],
+                            [cols(pl.kv_heads) for pl in plans], 2, "qkv")
+              for parts in (k_parts, v_parts))
+    return qs, ks, vs
+
+
+def _kv_for_group(pl: GQAShardPlan, k: torch.Tensor, v: torch.Tensor):
+    """k, v (B, nk, S, D) with a KV head per local query head where the
+    plan's grouping is not the kernel's (``kv_index``)."""
+    if pl.kv_index is None:
+        return k, v
+    idx = torch.tensor(pl.kv_index, device=k.device)
+    return k.index_select(1, idx), v.index_select(1, idx)
+
+
+def _wo_partial(p, pl: GQAShardPlan, o: torch.Tensor, hd: int):
+    """The attention output o (B, nq, S, D) of the member's heads, its
+    ``q_own`` columns times its rows of ``wo``: its partial (B, S,
+    d_model)."""
+    b, nq, s, _ = o.shape
+    o = o.transpose(1, 2).reshape(b, s, nq * hd)
+    lo = pl.q_own[0] - pl.heads[0] * hd
+    return o[..., lo:lo + pl.q_own[1] - pl.q_own[0]] @ p["wo"]
 
 
 def gqa_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
@@ -318,26 +348,73 @@ MLA_AXES = {
 }
 
 
+def _mla_latents(p, xq: torch.Tensor, xk: torch.Tensor, cfg: MLAConfig):
+    """The normed query latent of the rows ``xq`` (B, Sq, d_model), and the
+    normed kv latent (B, Sk, rank) and unrotated shared k_rope (B, Sk,
+    rope) of the rows ``xk``: the projections by the replicated ``wq_a``
+    and ``wkv_a``."""
+    q_lat = rms_norm(xq @ p["wq_a"], p["q_a_scale"])
+    kv_lat, k_rope = (xk @ p["wkv_a"]).split(
+        [cfg.kv_lora_rank, cfg.qk_rope_dim], dim=-1)
+    return q_lat, rms_norm(kv_lat, p["kv_a_scale"]), k_rope
+
+
+def _mla_split_q(q: torch.Tensor, cfg: MLAConfig, positions: torch.Tensor):
+    """q (B, S, n * (nope + rope)), whole heads: q_nope (B, S, n, nope) and
+    q_rope (B, S, n, rope) rotated."""
+    b, s, _ = q.shape
+    nope, rope = cfg.qk_nope_dim, cfg.qk_rope_dim
+    q_nope, q_rope = q.view(b, s, -1, nope + rope).split([nope, rope], dim=-1)
+    q_rope = apply_rope(q_rope.transpose(1, 2), positions,
+                        cfg.rope_theta).transpose(1, 2)
+    return q_nope, q_rope
+
+
 def _mla_project(p, x: torch.Tensor, cfg: MLAConfig,
                  positions: torch.Tensor):
     """q_nope (B, S, H, nope), q_rope (B, S, H, rope) rotated, the normed
     kv latent (B, S, rank) and k_rope (B, S, rope) rotated, shared by every
     head."""
-    b, s, _ = x.shape
-    nope, rope = cfg.qk_nope_dim, cfg.qk_rope_dim
-    q_lat = rms_norm(x @ p["wq_a"], p["q_a_scale"])
-    q = (q_lat @ p["wq_b"]).view(b, s, cfg.n_heads, nope + rope)
-    q_nope, q_rope = q.split([nope, rope], dim=-1)
-    q_rope = apply_rope(q_rope.transpose(1, 2), positions,
-                        cfg.rope_theta).transpose(1, 2)
-    kv_lat, k_rope = (x @ p["wkv_a"]).split([cfg.kv_lora_rank, rope], dim=-1)
-    kv_lat = rms_norm(kv_lat, p["kv_a_scale"])
+    q_lat, kv_lat, k_rope = _mla_latents(p, x, x, cfg)
+    q_nope, q_rope = _mla_split_q(q_lat @ p["wq_b"], cfg, positions)
     k_rope = apply_rope(k_rope[:, None], positions, cfg.rope_theta)[:, 0]
     return q_nope, q_rope, kv_lat, k_rope
 
 
+def _mla_attend(q_nope, q_rope, kv: torch.Tensor, k_rope: torch.Tensor,
+                cfg: MLAConfig, q0: int, dtype) -> torch.Tensor:
+    """The expanded causal attention of the query rows q0 .. q0 + Sq of n
+    heads (q_nope (B, Sq, n, nope), q_rope rotated) over the keys of rows
+    0 .. Sk (kv (B, Sk, n * (nope + v)), those heads' columns of the
+    latent times ``wkv_b``; k_rope (B, Sk, rope) rotated, shared), Sk >=
+    q0 + Sq: float32 over query chunks of 1024 rows, each chunk
+    multiplying only the key columns up to its last row, q widened to
+    float32 before the scale.  Returns (B, Sq, n * v) in ``dtype``."""
+    b, sq, n, nope = q_nope.shape
+    sk, rope, vd = kv.shape[1], cfg.qk_rope_dim, cfg.v_head_dim
+    k_nope, v = kv.view(b, sk, n, nope + vd).split([nope, vd], dim=-1)
+    qf = torch.cat([q_nope, q_rope], dim=-1).transpose(1, 2)  # (B,n,Sq,Dq)
+    kf = torch.cat([k_nope, k_rope[:, :, None].expand(b, sk, n, rope)],
+                   dim=-1).transpose(1, 2).float()
+    vf = v.transpose(1, 2).float()
+    scale = 1.0 / math.sqrt(nope + rope)
+    qc = _Q_CHUNK if sq > _Q_CHUNK and sq % _Q_CHUNK == 0 else sq
+    rows = torch.arange(q0 + sq, device=q_nope.device)
+    outs = []
+    for a in range(0, sq, qc):
+        lo, hi = q0 + a, q0 + a + qc
+        sc = torch.matmul(qf[:, :, a:a + qc].float() * scale,
+                          kf[:, :, :hi].transpose(-1, -2))  # column skip
+        sc.masked_fill_(rows[None, :hi] > rows[lo:hi, None], NEG_INF)
+        outs.append(torch.matmul(torch.softmax(sc, dim=-1), vf[:, :, :hi]))
+        del sc
+    o = outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
+    return o.transpose(1, 2).reshape(b, sq, n * vd).to(dtype)
+
+
 def mla_fwd(p, x: torch.Tensor, cfg: MLAConfig,
-            positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+            positions: Optional[torch.Tensor] = None,
+            rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """MLA full-sequence pass, the reference's expanded form: the latent
     expanded to per-head K (nope part, plus the shared rope part) and V,
     then causal attention in float32 over query chunks of 1024 rows, each
@@ -345,34 +422,97 @@ def mla_fwd(p, x: torch.Tensor, cfg: MLAConfig,
     reference, q is widened to float32 before it is scaled by
     1/sqrt(nope + rope).  x: (B, S, d_model) -> (B, S, d_model).  (The
     reference can also return the latent as a cache; the port's prefill
-    returns none, as the reference's serving path.)"""
+    returns none, as the reference's serving path.)  With ``rows`` (r0,
+    r1), only the output rows r0 .. r1, attending the keys of rows 0 ..
+    r1: a model shard's block of a sequence-parallel layer."""
     b, s, _ = x.shape
-    h, nope, rope = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    r0, r1 = rows or (0, s)
     if positions is None:
         positions = torch.arange(s, device=x.device)
-    q_nope, q_rope, kv_lat, k_rope = _mla_project(p, x, cfg, positions)
-    kv = (kv_lat @ p["wkv_b"]).view(b, s, h, nope + cfg.v_head_dim)
-    k_nope, v = kv.split([nope, cfg.v_head_dim], dim=-1)
-    qf = torch.cat([q_nope, q_rope], dim=-1).transpose(1, 2)  # (B,H,S,Dq)
-    kf = torch.cat([k_nope, k_rope[:, :, None].expand(b, s, h, rope)],
-                   dim=-1).transpose(1, 2).float()
-    vf = v.transpose(1, 2).float()
-    scale = 1.0 / math.sqrt(nope + rope)
-    qc = _Q_CHUNK if s > _Q_CHUNK and s % _Q_CHUNK == 0 else s
-    rows = torch.arange(s, device=x.device)
-    outs = []
-    for q0 in range(0, s, qc):
-        q1 = q0 + qc
-        k_hi = min(s, q1)                       # causal column skip
-        sc = torch.matmul(qf[:, :, q0:q1].float() * scale,
-                          kf[:, :, :k_hi].transpose(-1, -2))
-        sc.masked_fill_(rows[None, :k_hi] > rows[q0:q1, None], NEG_INF)
-        outs.append(torch.matmul(torch.softmax(sc, dim=-1),
-                                 vf[:, :, :k_hi]))
-        del sc
-    o = outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
-    o = o.transpose(1, 2).reshape(b, s, h * cfg.v_head_dim).to(x.dtype)
+    q_lat, kv_lat, k_rope = _mla_latents(p, x[:, r0:r1], x[:, :r1], cfg)
+    q_nope, q_rope = _mla_split_q(q_lat @ p["wq_b"], cfg, positions[r0:r1])
+    k_rope = apply_rope(k_rope[:, None], positions[:r1],
+                        cfg.rope_theta)[:, 0]
+    o = _mla_attend(q_nope, q_rope, kv_lat @ p["wkv_b"], k_rope, cfg, r0,
+                    x.dtype)
     return o @ p["wo"]
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAShardPlan:
+    """What one model shard computes of an MLA layer on a mesh: ranges of
+    the flat columns of ``wq_b`` (H * (nope + rope)) and ``wkv_b``
+    (H * (nope + v)), of ``wo``'s rows (H * v), and of heads."""
+    q_own: Tuple[int, int]          # its columns of wq_b
+    kv_own: Tuple[int, int]         # its columns of wkv_b
+    o_own: Tuple[int, int]          # its rows of wo
+    heads: Tuple[int, int]          # the heads it attends
+
+
+def mla_mesh_plan(cfg: MLAConfig, n_model: int, q_split: bool,
+                  kv_split: bool, o_split: bool) -> List[MLAShardPlan]:
+    """Each model shard's part of an MLA layer: equal blocks of ``wq_b``'s
+    and ``wkv_b``'s columns and of ``wo``'s rows where the reference's
+    ``heads_x_dim`` splits them on the model axis (``q_split``,
+    ``kv_split``, ``o_split``), the whole matrix otherwise.  The three
+    have different widths a head (nope + rope, nope + v and v), so a
+    block may end inside a head in one and not in another: a shard
+    attends every head its block of ``wo``'s rows touches, whole, and
+    reads the columns of those heads whoever projected them, as
+    :func:`gqa_mesh_plan` does."""
+    h, vd = cfg.n_heads, cfg.v_head_dim
+    qd, kvd = cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.qk_nope_dim + vd
+
+    def block(width, split, m):
+        if not split:
+            return (0, width)
+        return (m * width // n_model, (m + 1) * width // n_model)
+
+    plans = []
+    for m in range(n_model):
+        o_own = block(h * vd, o_split, m)
+        plans.append(MLAShardPlan(block(h * qd, q_split, m),
+                                  block(h * kvd, kv_split, m), o_own,
+                                  (o_own[0] // vd, -(-o_own[1] // vd))))
+    return plans
+
+
+def mla_fwd_mesh(ps, xs: List[torch.Tensor], cfg: MLAConfig,
+                 plans: List[MLAShardPlan], comm, group: Sequence[int],
+                 positions: List[torch.Tensor]) -> List[torch.Tensor]:
+    """:func:`mla_fwd` of one data replica over its model shards
+    ``group``, head parallel: member ``j`` holds the replicated input
+    ``xs[j]`` (B, S, d_model), the replicated ``wq_a``, ``wkv_a`` and
+    norm scales, and its slices ``ps[j]`` of ``wq_b``, ``wkv_b`` and
+    ``wo`` as ``plans[j]`` says.  Each member projects both latents, then
+    its columns of ``wq_b`` and ``wkv_b``; gets the whole heads it attends
+    (pieces other members projected come by :meth:`MeshComm.regather`);
+    attends them as :func:`mla_fwd` does; multiplies its part of the
+    output by its rows of ``wo``; and the partial products are summed
+    over the group (:meth:`MeshComm.all_reduce`, in float32, rounded
+    once) when ``wo``'s rows are split.  Returns each member's (B, S,
+    d_model) output."""
+    vd = cfg.v_head_dim
+    qd, kvd = cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.qk_nope_dim + vd
+    o_split = plans[0].o_own != (0, cfg.n_heads * vd)
+    lats = [_mla_latents(p, x, x, cfg) for p, x in zip(ps, xs)]
+    qs = comm.regather([q_lat @ p["wq_b"] for p, (q_lat, _, _) in
+                        zip(ps, lats)], group, [pl.q_own for pl in plans],
+                       [(pl.heads[0] * qd, pl.heads[1] * qd)
+                        for pl in plans], 2, "qkv")
+    kvs = comm.regather([kv_lat @ p["wkv_b"] for p, (_, kv_lat, _) in
+                         zip(ps, lats)], group, [pl.kv_own for pl in plans],
+                        [(pl.heads[0] * kvd, pl.heads[1] * kvd)
+                         for pl in plans], 2, "qkv")
+    outs = []
+    for p, pl, x, q, kv, (_, _, k_rope), pos in zip(ps, plans, xs, qs, kvs,
+                                                    lats, positions):
+        q_nope, q_rope = _mla_split_q(q, cfg, pos)
+        k_rope = apply_rope(k_rope[:, None], pos, cfg.rope_theta)[:, 0]
+        o = _mla_attend(q_nope, q_rope, kv, k_rope, cfg, 0, x.dtype)
+        lo = pl.o_own[0] - pl.heads[0] * vd
+        outs.append(o[..., lo:lo + pl.o_own[1] - pl.o_own[0]] @ p["wo"])
+    return comm.all_reduce(outs, group, "attn") if o_split else outs
 
 
 def mla_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor],
@@ -481,3 +621,38 @@ def cross_fwd(p, x: torch.Tensor, ctx: torch.Tensor,
     o = _sdpa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
     o = o.transpose(1, 2).reshape(b, s, h * hd)
     return torch.tanh(p["gate"]) * (o @ p["wo"])
+
+
+def cross_fwd_mesh(ps, xs: List[torch.Tensor], ctxs: List[torch.Tensor],
+                   cfg: AttnConfig, plans: List[GQAShardPlan], comm,
+                   group: Sequence[int]) -> List[torch.Tensor]:
+    """:func:`cross_fwd` of one data replica over its model shards
+    ``group``: member ``j`` holds the replicated text rows ``xs[j]`` (B, S,
+    d_model) and image context ``ctxs[j]`` (B, n_ctx, d_model), the
+    replicated norm scales and gate, and its slices ``ps[j]`` of ``wq``,
+    ``wk``, ``wv`` and ``wo`` as ``plans[j]`` (:func:`gqa_mesh_plan`)
+    says.  Each member projects q from the text rows and k, v from the
+    context by its columns; gets the whole heads it attends (pieces other
+    members projected come by :meth:`MeshComm.regather`), since the
+    per-head RMS norms of q and k need the whole head; attends them by
+    :func:`_sdpa`; multiplies its part of the output by its rows of
+    ``wo``; sums the partial products over the group
+    (:meth:`MeshComm.all_reduce`) when ``wo``'s rows are split; and only
+    then multiplies by ``tanh(gate)``, as the reference multiplies the
+    whole product.  Returns each member's (B, S, d_model) output."""
+    hd = cfg.head_dim
+    q_split = plans[0].q_own != (0, cfg.n_heads * hd)
+    qs, ks, vs = _gather_heads(
+        comm, group, plans, hd, [x @ p["wq"] for p, x in zip(ps, xs)],
+        *([c @ p[w] for p, c in zip(ps, ctxs)] for w in ("wk", "wv")))
+    outs = []
+    for p, pl, q, k, v in zip(ps, plans, qs, ks, vs):
+        b, s, _ = q.shape
+        sk = k.shape[1]
+        q = rms_norm(q.view(b, s, -1, hd), p["q_scale"]).transpose(1, 2)
+        k = rms_norm(k.view(b, sk, -1, hd), p["k_scale"]).transpose(1, 2)
+        k, v = _kv_for_group(pl, k, v.view(b, sk, -1, hd).transpose(1, 2))
+        outs.append(_wo_partial(p, pl, _sdpa(q, k, v), hd))
+    if q_split:
+        outs = comm.all_reduce(outs, group, "attn")
+    return [torch.tanh(p["gate"]) * o for p, o in zip(ps, outs)]

@@ -1,8 +1,10 @@
 """Feed-forward variants: gated (SwiGLU / GeGLU) and plain MLPs, on one
 device and tensor-parallel on a mesh.
 
-Port of ``repro/models/ffn.py`` (without its sequence-parallel layout,
-which no dense config uses).
+Port of ``repro/models/ffn.py``.  Its sequence-parallel layout (weights
+replicated, each model shard the FFN of its rows) is
+:class:`~repro_torch.models.sharded_lm.ShardedLM`'s, which calls
+:func:`ffn_fwd` on a shard's rows of an MLA block.
 """
 
 from __future__ import annotations

@@ -1,8 +1,9 @@
 """The composable LM, for the attention, MLA, cross-attention, MoE, Mamba2
-and xLSTM blocks, on one device (the dense GQA blocks also run on a mesh:
-:mod:`.sharded_lm`).  ``LM.param_axes`` gives the reference's logical axes
-of every leaf, in the reference's tree (``LM.reference_leaf`` maps each
-per-layer parameter to its stacked leaf and repeat).
+and xLSTM blocks, on one device (the GQA, MLA and cross-attention blocks
+also run on a mesh: :mod:`.sharded_lm`).  ``LM.param_axes`` gives the
+reference's logical axes of every leaf, in the reference's tree
+(``LM.reference_leaf`` maps each per-layer parameter to its stacked leaf
+and repeat).
 
 Port of ``repro/models/lm.py``.  An architecture is a repeating pattern of
 typed blocks plus an optional prelude.  The reference stacks each pattern
@@ -461,6 +462,24 @@ def block_cache_zeros(kind: str, cfg: ArchConfig, batch: int, s_max: int,
     return zeros(shapes)
 
 
+def image_context(cfg: ArchConfig, ctx: Optional[torch.Tensor],
+                  batch: int) -> Optional[torch.Tensor]:
+    """The image context in the model's type, checked: required (B, n,
+    d_model) when ``cfg`` has cross-attention layers, ignored (as the
+    reference ignores it, None) when it has none."""
+    if "xattn" not in cfg.layer_kinds:
+        return None
+    if ctx is None:
+        raise ValueError(f"{cfg.name} has cross-attention layers: pass "
+                         f"ctx (B, n_ctx_tokens={cfg.n_ctx_tokens}, "
+                         f"d_model={cfg.d_model})")
+    if ctx.dim() != 3 or ctx.shape[0] != batch or \
+            ctx.shape[2] != cfg.d_model:
+        raise ValueError(f"ctx of shape {tuple(ctx.shape)} for batch "
+                         f"{batch} and d_model {cfg.d_model}")
+    return ctx.to(cfg.dtype)
+
+
 # --------------------------------------------------------------------------
 # the model
 # --------------------------------------------------------------------------
@@ -629,23 +648,6 @@ class LM(nn.Module):
             x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
         return x
 
-    def _ctx(self, ctx: Optional[torch.Tensor], batch: int):
-        """The image context in the model's type, checked: required (B,
-        n, d_model) when the model has cross-attention layers, ignored
-        (as the reference ignores it) when it has none."""
-        cfg = self.cfg
-        if "xattn" not in cfg.layer_kinds:
-            return None
-        if ctx is None:
-            raise ValueError(f"{cfg.name} has cross-attention layers: pass "
-                             f"ctx (B, n_ctx_tokens={cfg.n_ctx_tokens}, "
-                             f"d_model={cfg.d_model})")
-        if ctx.dim() != 3 or ctx.shape[0] != batch or \
-                ctx.shape[2] != cfg.d_model:
-            raise ValueError(f"ctx of shape {tuple(ctx.shape)} for batch "
-                             f"{batch} and d_model {cfg.d_model}")
-        return ctx.to(cfg.dtype)
-
     def set_xattn_gates(self, value: float) -> int:
         """Set every cross-attention gate to ``value``; returns how many.
         The reference zero-initialises the gates, so at init ``tanh(0)``
@@ -678,7 +680,7 @@ class LM(nn.Module):
         gradients are on."""
         cfg = self.cfg
         x = self._embed(tokens)
-        ctx = self._ctx(ctx, x.shape[0])
+        ctx = image_context(self.cfg, ctx, x.shape[0])
         positions = torch.arange(x.shape[1], device=x.device)
         kinds = cfg.layer_kinds
 
@@ -749,7 +751,7 @@ class LM(nn.Module):
         (B, 1, V) float32, caches), the caches updated in place."""
         cfg = self.cfg
         x = self._embed(token)
-        ctx = self._ctx(ctx, x.shape[0])
+        ctx = image_context(self.cfg, ctx, x.shape[0])
         for i, (kind, p) in enumerate(zip(cfg.layer_kinds, self.layers)):
             x, caches[i] = block_decode(kind, p, x, caches[i], cfg, pos,
                                         ctx=ctx, shared=self.shared_attn)

@@ -5,9 +5,16 @@ it is.  The model code reads a flag when it runs; a benchmark or a test may
 flip one.  ``moe_onehot_dispatch`` is read by ``models/moe.py`` and
 ``mlstm_chunked`` by ``models/xlstm.py``.  ``mla_seq_parallel``,
 ``mamba_head_constraints`` and ``remat_save_collectives`` only pick a
-sharding or what a remat keeps of the collectives in the reference, so no
-module of the port reads them (one device, no collectives; ROADMAP
-A3.4)."""
+sharding or what a remat keeps of the collectives in the reference, and
+no module of the port reads them.  ``mla_seq_parallel`` chooses nothing
+on the port's mesh either: it only constrains the reference's query rows
+to ``seq_q``, an activation layout of the same function, and the port's
+MLA on a mesh is head parallel whatever it says
+(:func:`repro_torch.models.attention.mla_fwd_mesh`: the weights already
+lie split by heads, so one all-reduce and no weight regather); the
+port's sequence-parallel MLA follows ``ArchConfig.seq_parallel`` alone
+(:class:`repro_torch.models.sharded_lm.ShardedLM`).  The Mamba2 flag
+waits for Mamba2 on a mesh (ROADMAP A3.4)."""
 
 FLAGS = {
     # mLSTM: chunked query processing with static causal block skipping

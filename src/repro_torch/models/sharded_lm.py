@@ -3,25 +3,44 @@
 
 Port of what the reference's ``LM`` does under GSPMD with
 ``make_lm_rules(mesh)``, for the dense GQA blocks (``attn``,
-``attn_local``, ``attn_global``, ``attn_bidir``).  :class:`ShardedLM`
-holds each shard's slices of the parameters as tensors of its own on its
-device (:func:`repro_torch.distributed.sharding.leaf_layouts`: the
-reference's specs, one tensor per layer); a mesh may repeat a device.  A
-step is one autograd graph over the shards, the collectives of
+``attn_local``, ``attn_global``, ``attn_bidir``), MLA (``mla``) and
+gated cross-attention (``xattn``).  :class:`ShardedLM` holds each shard's
+slices of the parameters as tensors of its own on its device
+(:func:`repro_torch.distributed.sharding.leaf_layouts`: the reference's
+specs, one tensor per layer); a mesh may repeat a device.  A step is one
+autograd graph over the shards, the collectives of
 :mod:`repro_torch.distributed.collectives` its only links:
 
 * the global batch is split in contiguous row blocks over the data
-  replicas, as a ``NamedSharding`` over ``("pod", "data")`` splits it;
+  replicas, as a ``NamedSharding`` over ``("pod", "data")`` splits it,
+  and so is a VLM's image context ``ctx``, replicated over each
+  replica's model shards;
 * the embedding lookup is vocab-parallel: each model shard looks up the
   tokens in its rows of the ``("vocab", "embed")`` table and the partial
   rows are all-reduced (a tied table's gradient sums the lookup's part and
   the loss's);
 * the residual stream is replicated: each model shard holds its copy;
-* attention splits ``wq``/``wk``/``wv`` by column and ``wo`` by row, each
-  shard running the ``flash_attention`` kernel (forward, and on the
-  backward pass its backward kernels) on its heads, then an all-reduce
-  of the ``wo`` partials; the FFN splits ``w_gate``/``w_up`` by column
-  and ``w_down`` by row, then an all-reduce;
+* attention is head parallel.  GQA splits ``wq``/``wk``/``wv`` by column
+  and ``wo`` by row, each shard running the ``flash_attention`` kernel
+  (forward, and on the backward pass its backward kernels) on its heads;
+  MLA projects both latents from its replicated ``wq_a``/``wkv_a``, then
+  its columns of ``wq_b``/``wkv_b``, and attends its heads in float32 in
+  plain ops (:func:`.attention.mla_fwd_mesh`); cross-attention projects
+  q from the text rows and k, v from the context by its columns and
+  attends its heads by the plain ``_sdpa``
+  (:func:`.attention.cross_fwd_mesh`, the ``tanh(gate)`` after the sum).
+  Each ends with an all-reduce of the ``wo`` partials; the FFN splits
+  ``w_gate``/``w_up`` by column and ``w_down`` by row, then an
+  all-reduce;
+* with ``cfg.seq_parallel`` (the reference's sequence parallelism: every
+  block weight replicated) each model shard of an ``mla`` block computes
+  its contiguous block of S / M query rows, the attention against the
+  keys of all rows before them and the FFN of its rows, and the rows are
+  regathered (:meth:`MeshComm.regather`, whose backward is the
+  adjoint); the other kinds compute replicated, as the reference's GQA
+  and cross-attention read no such field.  No shipped config sets
+  ``seq_parallel``: this path runs only in the CPU tests, never yet on
+  a card;
 * the loss is the vocab-parallel chunked cross-entropy
   (:func:`.common.softmax_xent_sum_mesh`), summed over the replicas and
   divided by the global B * S.
@@ -29,11 +48,13 @@ step is one autograd graph over the shards, the collectives of
 A dimension that does not divide its mesh axis is replicated, as the
 reference's rules fall back: every shard then holds it whole and computes
 with it (a vocab of 504 rows on a model axis of 4, a flat ``kv_x_dim``
-that splits inside a head).  The bf16 partial sums of the all-reduces are
-summed in float32 and rounded once to bf16.  The other block kinds (MoE,
-MLA, cross-attention, Mamba2, xLSTM) do not run on a mesh yet (ROADMAP
-A3.4): their expert-, sequence- and inner-parallel layouts differ; a
-model of them raises here, and their parameter layouts
+that splits inside a head).  Where a split block ends inside a head
+(reduced minicpm3's 96 ``wq_b`` columns on a model axis of 8), a shard
+attends every head its rows of ``wo`` touch, whole.  The bf16 partial
+sums of the all-reduces are summed in float32 and rounded once to bf16.
+The other block kinds (MoE, Mamba2, xLSTM) do not run on a mesh yet
+(ROADMAP A3.4): their expert- and inner-parallel layouts differ; a model
+of them raises here, and their parameter layouts
 (:func:`~repro_torch.distributed.sharding.param_shardings`) are ported.
 """
 
@@ -51,10 +72,11 @@ from ..distributed.sharding import (gather_tree, leaf_layouts,
 from . import attention as attn_mod
 from . import ffn as ffn_mod
 from .common import softmax_xent_sum_mesh
-from .lm import LM, ParamTree, _apply_norm
+from .lm import LM, ParamTree, _apply_norm, image_context
 
 #: the block kinds that run on a mesh
-MESH_KINDS = ("attn", "attn_local", "attn_global", "attn_bidir")
+MESH_KINDS = ("attn", "attn_local", "attn_global", "attn_bidir", "mla",
+              "xattn")
 
 
 def _nest(flat: Dict[str, torch.Tensor]) -> Dict[str, Any]:
@@ -85,9 +107,8 @@ class ShardedLM:
         if other:
             raise ValueError(
                 f"{cfg.name}: block kinds {other} do not run on a mesh yet "
-                "(ROADMAP A3.4: expert-parallel MoE, sequence-parallel "
-                "MLA, Mamba2 and xLSTM inner sharding); on a mesh the port "
-                f"runs {MESH_KINDS}")
+                "(ROADMAP A3.4: expert-parallel MoE, Mamba2 and xLSTM inner "
+                f"sharding); on a mesh the port runs {MESH_KINDS}")
         self.cfg, self.mesh = cfg, mesh
         self.rules = make_lm_rules(mesh)
         self.comm = MeshComm(mesh)
@@ -100,11 +121,23 @@ class ShardedLM:
         def split(name):
             return self.layouts[name].model_dim is not None
 
-        first = f"layers.{len(cfg.prelude)}"
-        self.attn_plans = attn_mod.gqa_mesh_plan(
-            cfg.attn_cfg("attn"), n_model, split(f"{first}.attn.wq"),
-            split(f"{first}.attn.wk"))
-        self.ffn_split = split(f"{first}.ffn.w_up")
+        # each kind's shard plans and FFN split, from its first layer (the
+        # layers of a kind have one shape, so one layout)
+        self.attn_plans: Dict[str, list] = {}
+        self.ffn_split: Dict[str, bool] = {}
+        for i, kind in enumerate(cfg.layer_kinds):
+            if kind in self.attn_plans:
+                continue
+            at = f"layers.{i}.attn"
+            if kind == "mla":
+                self.attn_plans[kind] = attn_mod.mla_mesh_plan(
+                    cfg.mla_cfg(), n_model, split(f"{at}.wq_b"),
+                    split(f"{at}.wkv_b"), split(f"{at}.wo"))
+            else:
+                self.attn_plans[kind] = attn_mod.gqa_mesh_plan(
+                    cfg.attn_cfg("attn"), n_model, split(f"{at}.wq"),
+                    split(f"{at}.wk"))
+            self.ffn_split[kind] = split(f"layers.{i}.ffn.w_up")
         self._head = "embed" if cfg.tie_embed else "lm_head"
         v = cfg.vocab // n_model if split(self._head) else cfg.vocab
         self.vocab_rows = [(m * v, (m + 1) * v) if split(self._head)
@@ -182,23 +215,55 @@ class ShardedLM:
                   for x in xs]
         return xs
 
-    def _block(self, kind: str, ps, xs, group, positions):
+    def _block(self, kind: str, ps, xs, group, positions, ctxs):
         cfg, comm = self.cfg, self.comm
+        if kind == "mla" and cfg.seq_parallel:
+            return self._mla_rows(ps, xs, group, positions)
         hs = [_apply_norm(p["ln1"], x, cfg) for p, x in zip(ps, xs)]
-        a = attn_mod.gqa_fwd_mesh([p["attn"] for p in ps], hs,
-                                  cfg.attn_cfg(kind), self.attn_plans, comm,
-                                  group, positions)
+        attn, plans = [p["attn"] for p in ps], self.attn_plans[kind]
+        if kind == "mla":
+            a = attn_mod.mla_fwd_mesh(attn, hs, cfg.mla_cfg(), plans, comm,
+                                      group, positions)
+        elif kind == "xattn":
+            a = attn_mod.cross_fwd_mesh(attn, hs, ctxs, cfg.attn_cfg(kind),
+                                        plans, comm, group)
+        else:
+            a = attn_mod.gqa_fwd_mesh(attn, hs, cfg.attn_cfg(kind), plans,
+                                      comm, group, positions)
         if "post_ln1" in ps[0]:
             a = [_apply_norm(p["post_ln1"], t, cfg) for p, t in zip(ps, a)]
         xs = [x + t for x, t in zip(xs, a)]
         hs = [_apply_norm(p["ln2"], x, cfg) for p, x in zip(ps, xs)]
         f = ffn_mod.ffn_fwd_mesh([p["ffn"] for p in ps], hs, cfg.ffn_cfg(),
-                                 self.ffn_split, comm, group)
+                                 self.ffn_split[kind], comm, group)
         if "post_ln2" in ps[0]:
             f = [_apply_norm(p["post_ln2"], t, cfg) for p, t in zip(ps, f)]
         return [x + t for x, t in zip(xs, f)]
 
+    def _mla_rows(self, ps, xs, group, positions):
+        """A sequence-parallel ``mla`` block (its weights replicated):
+        member ``j`` of the M in ``group`` computes the rows j * S / M ..
+        (j + 1) * S / M of the block's output, the attention of those
+        query rows against the keys of every row up to its last, then the
+        FFN of its rows; the blocks of rows are regathered."""
+        cfg = self.cfg
+        s, m = xs[0].shape[1], len(group)
+        if s % m:
+            raise ValueError(f"a sequence of {s} does not split over {m} "
+                             "model shards (seq_parallel)")
+        own = [(j * s // m, (j + 1) * s // m) for j in range(m)]
+        outs = []
+        for p, x, pos, (r0, r1) in zip(ps, xs, positions, own):
+            h = _apply_norm(p["ln1"], x[:, :r1], cfg)
+            y = x[:, r0:r1] + attn_mod.mla_fwd(p["attn"], h, cfg.mla_cfg(),
+                                                positions=pos[:r1],
+                                                rows=(r0, r1))
+            h = _apply_norm(p["ln2"], y, cfg)
+            outs.append(y + ffn_mod.ffn_fwd(p["ffn"], h, cfg.ffn_cfg()))
+        return self.comm.regather(outs, group, own, [(0, s)] * m, 1, "seq")
+
     def _replica(self, rep: int, tokens: List[torch.Tensor],
+                 ctxs: Optional[List[torch.Tensor]],
                  remat: bool) -> List[torch.Tensor]:
         cfg = self.cfg
         group = self.comm.model_group(rep)
@@ -212,7 +277,7 @@ class ShardedLM:
         def run(xs, lo: int, hi: int):
             for i in range(lo, hi):
                 xs = self._block(kinds[i], [t[str(i)] for t in layers], xs,
-                                 group, positions)
+                                 group, positions, ctxs)
             return xs
 
         xs = self._embed(ps, group, tokens)
@@ -227,17 +292,32 @@ class ShardedLM:
                 xs = run(xs, lo, lo + n_pat)
         return [_apply_norm(p["final_norm"], x, cfg) for p, x in zip(ps, xs)]
 
-    def forward(self, tokens: torch.Tensor, remat: bool = False
+    def _ctx(self, ctx: Optional[torch.Tensor], batch: int):
+        """The image context checked as :meth:`LM.forward` checks it
+        (required by a model with cross-attention layers); a model without
+        them takes none."""
+        if ctx is not None and "xattn" not in self.cfg.layer_kinds:
+            raise ValueError(f"{self.cfg.name} has no cross-attention "
+                             "layers: it takes no image context")
+        return image_context(self.cfg, ctx, batch)
+
+    def forward(self, tokens: torch.Tensor,
+                ctx: Optional[torch.Tensor] = None, remat: bool = False
                 ) -> List[torch.Tensor]:
         """The final-normed hidden states of the global batch ``tokens``
-        (B, S) ids, or (B, S, d_model) frames for an audio model: one
+        (B, S) ids, or (B, S, d_model) frames for an audio model, with the
+        image context ``ctx`` (B, n_ctx_tokens, d_model) of a model with
+        cross-attention layers (required there, refused elsewhere): one
         (B / data replicas, S, d_model) tensor per shard, in mesh order
         (each replica's rows, replicated over its model shards).  ``remat``
         recomputes each pattern unit in the backward pass
         (``torch.utils.checkpoint``, as :meth:`LM.forward`)."""
+        ctx = self._ctx(ctx, tokens.shape[0])
         hidden = []
         for rep in range(self.comm.n_rep):
-            hidden += self._replica(rep, self._place(tokens, rep), remat)
+            ctxs = None if ctx is None else self._place(ctx, rep)
+            hidden += self._replica(rep, self._place(tokens, rep), ctxs,
+                                    remat)
         shape = (tokens.shape[0], tokens.shape[1], self.cfg.d_model)
         return self.rules.shard(hidden, ("batch", None, "embed"), shape)
 
@@ -245,11 +325,10 @@ class ShardedLM:
              ctx: Optional[torch.Tensor] = None,
              remat: bool = True) -> torch.Tensor:
         """:meth:`LM.loss` of the global batch on the mesh: the mean token
-        cross-entropy, a float32 scalar on the first shard's device."""
-        if ctx is not None:
-            raise ValueError("a dense config takes no image context")
+        cross-entropy, a float32 scalar on the first shard's device;
+        ``ctx`` as :meth:`forward`."""
         cfg, comm = self.cfg, self.comm
-        hidden = self.forward(tokens, remat)
+        hidden = self.forward(tokens, ctx, remat)
         total = None
         for rep in range(comm.n_rep):
             group = comm.model_group(rep)
@@ -266,11 +345,9 @@ class ShardedLM:
     def prefill(self, tokens: torch.Tensor,
                 ctx: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Last-position float32 logits (B, 1, V) of the global batch, on
-        the first shard's device."""
-        if ctx is not None:
-            raise ValueError("a dense config takes no image context")
+        the first shard's device; ``ctx`` as :meth:`forward`."""
         cfg, comm = self.cfg, self.comm
-        hidden = self.forward(tokens)
+        hidden = self.forward(tokens, ctx)
         rows = []
         for rep in range(comm.n_rep):
             group = comm.model_group(rep)
