@@ -148,18 +148,25 @@ llama-3.2-vision-11b at one pattern unit (4 GQA layers on the flash
 kernels, 32 forward and 16 backward launches a step, and a gated
 cross-attention layer over 1600 seeded patch embeddings, the gates
 opened to 0.5), each then in float32 (one MLA layer; the whole unit)
-on the mesh against one device.
+on the mesh against one device.  Then ``phase_train_sharded_zamba2`` on
+the same mesh and batch, bf16: zamba2-7b at full width and 15 of its 81
+layers (its 3-layer prelude and two pattern units; Mamba2 head parallel,
+the shared attention block called at two sites, 16 forward and 8
+backward flash launches a step at D 112), its third step profiled, and
+the device time of its chunked SSD's kernels read from that profile for
+its share of the step; then its prelude and one unit in float32 on the
+mesh against one device.
 ``flash_attention``'s checks end with ``phase_flash_backward_checks``:
 dq, dk and dv of the backward kernels against autograd of the plain
 version at every head dim, S 1000 and 77, GQA 1/2/4, the masks and the
 cap, float32 and bfloat16 (the bfloat16 ones on the tensor-core kernels),
 repeat backward launches bit-identical, the forward's out unchanged by
 asking for its row statistics, and a negative control; then one shard of
-llama-vision's mesh train shape (2 x 4096, 16 / 4 heads, D 128, bfloat16,
-causal); the backward is timed at stablelm's train shape
-(``phase_flash_bwd_times``) against its bound, the plain version's
-autograd and torch's ``scaled_dot_product_attention`` backward (the
-yardstick only).  Each phase's seconds are printed, and the
+llama-vision's and of zamba2's mesh train shapes (2 x 4096, 16 / 4 heads
+at D 128 and 16 / 16 at D 112, bfloat16, causal); the backward is timed
+at stablelm's train shape (``phase_flash_bwd_times``) against its bound,
+the plain version's autograd and torch's ``scaled_dot_product_attention``
+backward (the yardstick only).  Each phase's seconds are printed, and the
 total.
 
 Each path is run with the kernel counters set to 0 just before it and read
@@ -2188,11 +2195,13 @@ def phase_flash_backward_checks():
 
 
 #: the backward's train shapes that its cases above do not reach: (B, Hq,
-#: Hkv, S, D) of one shard of llama-3.2-vision-11b on the (data 2, model
-#: 2) mesh (batch 4 x 4096 split over the data axis, its 32 / 8 heads over
-#: the model axis; causal, no window or cap)
+#: Hkv, S, D) of one shard of llama-3.2-vision-11b and of zamba2-7b's
+#: shared block on the (data 2, model 2) mesh (batch 4 x 4096 split over
+#: the data axis, their 32 / 8 and 32 / 32 heads over the model axis;
+#: causal, no window or cap)
 FLASH_BWD_TRAIN_SHAPES = {"llama-3.2-vision-11b shard": (2, 16, 4, 4096,
-                                                         128)}
+                                                         128),
+                          "zamba2-7b shard": (2, 16, 16, 4096, 112)}
 
 
 def _flash_backward_train_shapes(gen) -> None:
@@ -2557,11 +2566,11 @@ def _device_rows(prof):
     """(ms, launches, name) of each kernel in a torch.profiler window: the
     CUDA events' self time, summed (the operators that launch them are not
     counted again; a record_function range's span on the device, such as
-    MLA_RANGE's, is no kernel and is left out)."""
+    MLA_RANGE's or SSD_RANGE's, is no kernel and is left out)."""
     from torch.autograd import DeviceType
     rows = []
     for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA or ev.key == MLA_RANGE or \
+        if ev.device_type != DeviceType.CUDA or ev.key in RANGES or \
                 getattr(ev, "is_user_annotation", False):
             continue
         t = getattr(ev, "self_device_time_total", None)
@@ -2572,9 +2581,9 @@ def _device_rows(prof):
     return rows
 
 
-def _device_report(prof, wall_ms: float, what: str, top: int = 12) -> None:
+def _device_report(prof, wall_ms: float, what: str, top: int = 12) -> float:
     """Device time by kernel (``_device_rows``) and the device's busy and
-    idle share of the window's wall time."""
+    idle share of the window's wall time; returns the busy ms."""
     rows = _device_rows(prof)
     busy = sum(r[0] for r in rows)
     share = 100 * busy / wall_ms
@@ -2584,6 +2593,7 @@ def _device_report(prof, wall_ms: float, what: str, top: int = 12) -> None:
     for ms, count, name in sorted(rows, reverse=True)[:top]:
         log(f"    {ms:9.2f} ms {100 * ms / busy:5.1f} % x{count:<5d} "
             f"{name[:110]}")
+    return busy
 
 
 def phase_lm_profile(model, inputs, slots: int, steps: int = 3, ctx=None,
@@ -2832,22 +2842,21 @@ def _unit_model(cfg, seed: int, device: str):
 def _check_train_counts(cfg, steps: int, what: str, shards: int = 1) -> dict:
     """The kernel launches since the counters were set to 0 are those
     ``steps`` train steps of ``cfg`` make on the card: each GQA layer's
-    forward twice a step (the pass and its remat recompute; no config here
-    has a prelude, which is not recomputed), on the tensor-core forward in
-    bf16, and its backward once, on the tensor-core backward in bf16, on
-    each of ``shards`` shards of a mesh; nothing else, and no plain
-    version.  Returns the forward (``launches``), tensor-core forward
-    (``wgmma``), backward (``bwd``) and tensor-core backward
-    (``bwd_wgmma``) launches."""
+    (and each ``mamba_shared`` layer's shared-block call's) forward twice a
+    step (the pass and its remat recompute; once in a prelude, which is not
+    recomputed), on the tensor-core forward in bf16, and its backward
+    once, on the tensor-core backward in bf16, on each of ``shards``
+    shards of a mesh; nothing else, and no plain version.  Returns the
+    forward (``launches``), tensor-core forward (``wgmma``), backward
+    (``bwd``) and tensor-core backward (``bwd_wgmma``) launches."""
     import torch
     from repro_torch import kernels
     from repro_torch.kernels.flash_attention import flash_attention_cuda
-    from repro_torch.models.lm import flash_layers
-    if cfg.prelude:
-        raise AssertionError(f"{cfg.name}: a prelude is not recomputed")
+    from repro_torch.models.lm import FLASH_KINDS, flash_layers
     n = flash_layers(cfg) * shards
+    fwd = 2 * n - sum(k in FLASH_KINDS for k in cfg.prelude) * shards
     bf16 = cfg.dtype == torch.bfloat16
-    want = {"launches": 2 * n * steps, "wgmma": 2 * n * steps * bf16,
+    want = {"launches": fwd * steps, "wgmma": fwd * steps * bf16,
             "bwd": n * steps, "bwd_wgmma": n * steps * bf16}
     counts = kernels.counters()
     got = {"launches": counts["flash_attention"]["launches"],
@@ -3130,6 +3139,7 @@ def _mesh_vs_one_device(cfg, mesh, make, seed: int, what: str) -> dict:
     shards = len(mesh.devices.flat)
     kw = dict(steps=2, batch=TRAIN_CHECK_BATCH, seq=TRAIN_CHECK_SEQ,
               seed=seed, verbose=False)
+    t0 = time.perf_counter()
     runs = {}
     for where in ("one device", "mesh"):
         m = make()
@@ -3172,7 +3182,8 @@ def _mesh_vs_one_device(cfg, mesh, make, seed: int, what: str) -> dict:
         f"{[round(v, 6) for v in runs['mesh'][1]]} (max rel err "
         f"{rel['losses']:.2e}), grad norms max rel err "
         f"{rel['grad norms']:.2e} (rtol {SHARDED_RTOL}), parameters max "
-        f"|err| {worst:.2e} (rtol {PARAM_RTOL}, atol {PARAM_ATOL})")
+        f"|err| {worst:.2e} (rtol {PARAM_RTOL}, atol {PARAM_ATOL}); "
+        f"{time.perf_counter() - t0:.1f} s")
     return {"losses_rel": rel["losses"], "norms_rel": rel["grad norms"],
             "param_err": worst}
 
@@ -3187,9 +3198,11 @@ SHARDED_MLA_XATTN_RUNS = {"minicpm3-4b": (16, 1),
                           "llama-3.2-vision-11b": (5, 5)}
 
 
-#: the record_function range around MLA's attention core (``_mla_attend``)
-#: in minicpm3-4b's profiled mesh step
-MLA_RANGE = "mla_attend"
+#: the record_function ranges around MLA's attention core
+#: (``_mla_attend``) in minicpm3-4b's profiled mesh step and around the
+#: chunked SSD (``_ssd_chunked``) in zamba2-7b's
+MLA_RANGE, SSD_RANGE = "mla_attend", "ssd_chunked"
+RANGES = (MLA_RANGE, SSD_RANGE)
 
 
 def _range_device_ms(prof, name: str) -> tuple:
@@ -3235,69 +3248,62 @@ def _range_device_ms(prof, name: str) -> tuple:
     return fwd / 1e3, bwd / 1e3, sorted(names)
 
 
-def _profile_mla_share(sharded, opt_state, steps: int, seed: int,
-                       warm_ms: float) -> dict:
-    """minicpm3's profiled warm step (``_profile_train_step``) with each
-    call of MLA's attention core inside a MLA_RANGE range: the device ms
-    of its kernels, forward and backward (``_range_device_ms``), and
-    their share of the step's device busy time, of its wall time and of
-    the unprofiled warm step's ``warm_ms``."""
+def _profile_range_share(sharded, opt_state, steps: int, seed: int,
+                         warm_ms: float, module, attr: str, rng: str,
+                         what: str, key: str) -> dict:
+    """The profiled warm step (``_profile_train_step``) with each call of
+    ``module.attr`` inside a ``rng`` range: the device ms of its kernels,
+    forward and backward (``_range_device_ms``), and their share of the
+    step's device busy time, of its wall time and of the unprofiled warm
+    step's ``warm_ms``; the numbers under ``key``."""
     import torch
-    from repro_torch.models import attention as attn_mod
-    attend = attn_mod._mla_attend
+    fn = getattr(module, attr)
 
     def marked(*args, **kw):
-        with torch.profiler.record_function(MLA_RANGE):
-            return attend(*args, **kw)
-    attn_mod._mla_attend = marked
+        with torch.profiler.record_function(rng):
+            return fn(*args, **kw)
+    setattr(module, attr, marked)
     try:
-        prof, wall = _profile_train_step(sharded, opt_state, steps, seed)
+        prof, wall, busy = _profile_train_step(sharded, opt_state, steps,
+                                               seed)
     finally:
-        attn_mod._mla_attend = attend
+        setattr(module, attr, fn)
     t0 = time.perf_counter()
-    busy = sum(r[0] for r in _device_rows(prof))
-    fwd, bwd, names = _range_device_ms(prof, MLA_RANGE)
+    fwd, bwd, names = _range_device_ms(prof, rng)
     read_s = time.perf_counter() - t0
     if not (fwd > 0 and bwd > 0):
-        log(f"  MLA attention core's share: not measured (the profile "
-            f"gave {fwd:.1f} ms forward, {bwd:.1f} ms backward)")
+        log(f"  {what}'s share: not measured (the profile gave {fwd:.1f} "
+            f"ms forward, {bwd:.1f} ms backward)")
         return {}
-    log(f"  MLA attention core (float32, ``_mla_attend``) in the profiled "
-        f"step: forward and remat recompute {fwd:.1f} ms, backward "
-        f"{bwd:.1f} ms ({', '.join(names)}); {fwd + bwd:.1f} ms, "
+    log(f"  {what} (``{attr}``) in the profiled step: forward and remat "
+        f"recompute {fwd:.1f} ms, backward {bwd:.1f} ms "
+        f"({', '.join(names)}); {fwd + bwd:.1f} ms, "
         f"{100 * (fwd + bwd) / busy:.1f} % of the device's busy "
         f"{busy:.1f} ms, {100 * (fwd + bwd) / wall:.1f} % of the step's "
         f"wall {wall:.1f} ms, {100 * (fwd + bwd) / warm_ms:.1f} % of the "
         f"unprofiled warm step's {warm_ms:.1f} ms (read from the profile "
         f"in {read_s:.1f} s)")
-    return {"mla_attention_ms": fwd + bwd, "mla_attention_fwd_ms": fwd,
-            "mla_attention_bwd_ms": bwd, "busy_ms": busy,
-            "profiled_wall_ms": wall,
-            "mla_attention_share": (fwd + bwd) / busy}
+    return {f"{key}_ms": fwd + bwd, f"{key}_fwd_ms": fwd,
+            f"{key}_bwd_ms": bwd, "busy_ms": busy, "profiled_wall_ms": wall,
+            f"{key}_share": (fwd + bwd) / busy}
 
 
-def phase_train_sharded_mla_xattn(seed: int, smi):
-    """The sharded training path of the MLA and cross-attention kinds
-    (``ShardedLM``'s head-parallel ``mla_fwd_mesh`` and ``cross_fwd_mesh``,
-    the image context split with the batch) on the (data 2, model 2) mesh
-    of four ``cuda:0`` shards, ZeRO-1, train_4k cut to the global batch 4 x
-    4096, bf16, 2 steps (cold, then warm), for minicpm3-4b and
-    llama-3.2-vision-11b at full width and SHARDED_MLA_XATTN_RUNS' depth
-    (llama-vision's gates opened to XATTN_GATE before the split, its 1600
-    seeded patch embeddings a step from the trainer): ms per step,
-    tokens/s, peak memory, the bytes each collective moves per step, every
-    loss and gradient norm finite and every norm > 0, and the flash
-    launches of the 4 shards (``_check_train_counts``: none for MLA, two
-    forward and one backward per GQA layer and shard a step, on the
-    tensor cores; no plain call).  minicpm3's third (warm) step under
-    torch.profiler (device time by kernel, idle share), and the device
-    time of its float32 MLA attention core's kernels in that step, forward
-    and backward, and their share of the step (``_profile_mla_share``).
-    Then each config at its check depth in float32, gates
-    open: 2 steps on the mesh against 2 of the single-device trainer from
-    the same weights (``_mesh_vs_one_device``).  Returns per config the
+def _train_sharded_cut(name: str, layers: int, check_layers: int,
+                       seed: int, smi, share=None) -> dict:
+    """``name`` at full width and ``layers`` layers, bf16, trained on the
+    (data 2, model 2) mesh of four ``cuda:0`` shards, ZeRO-1, train_4k
+    cut to the global batch 4 x 4096, 2 steps (cold, then warm), any
+    cross-attention gates opened to XATTN_GATE before the split: ms per
+    step, tokens/s, peak memory, the bytes each collective moves per
+    step, every loss and gradient norm finite and every norm > 0, and the
+    flash launches of the 4 shards (``_check_train_counts``).  With
+    ``share`` (module, function name, range, what, key), a third (warm)
+    step under torch.profiler and the device time of that function's
+    kernels in it (``_profile_range_share``).  Then ``check_layers``
+    layers in float32: 2 steps on the mesh against 2 of the single-device
+    trainer from the same weights (``_mesh_vs_one_device``).  Returns the
     timings and the flash forward (``fwd``) and backward (``bwd``)
-    launches of its bf16 run."""
+    launches of the bf16 run."""
     import dataclasses
     import math
     import torch
@@ -3309,80 +3315,129 @@ def phase_train_sharded_mla_xattn(seed: int, smi):
     steps = 2
     shards = SHARDED_DATA * SHARDED_MODEL
     mesh = make_host_mesh(SHARDED_MODEL, devices=["cuda:0"] * shards)
+    t0 = time.perf_counter()
+    full = configs.get_config(name)
+    cfg = dataclasses.replace(full, n_layers=layers)
+    log(f"== train on a mesh: {name} at full width, {layers} of its "
+        f"{full.n_layers} layers (card: {smi}); (data {SHARDED_DATA}, "
+        f"model {SHARDED_MODEL}) of {shards} cuda:0 shards, ZeRO-1; "
+        f"global batch {TRAIN_BATCH} x {TRAIN_SEQ}, {steps} steps at lr "
+        "3e-4; remat per pattern unit")
+    model = LM(cfg, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(seed))
+    gates = model.set_xattn_gates(XATTN_GATE)
+    n = sum(p.numel() for p in model.parameters())
+    sharded = ShardedLM(model, mesh)
+    del model
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counters()
+    sharded.comm.reset_bytes()
+    hist = []
+    _, opt_state, losses = train(
+        model=sharded, steps=steps, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        lr=3e-4, seed=seed, verbose=False, history=hist)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    got = _check_train_counts(cfg, steps, f"train {name} on the mesh",
+                              shards)
+    norms = [h["grad_norm"] for h in hist]
+    ms = [1e3 * h["seconds"] for h in hist]
+    if len(losses) != steps or not all(
+            math.isfinite(v) for v in losses + norms) or \
+            not all(g > 0 for g in norms):
+        raise AssertionError(f"train {name} on the mesh: losses "
+                             f"{losses}, grad norms {norms}")
+    per_step = {k: v // steps
+                for k, v in sorted(sharded.comm.bytes.items())}
+    rate = TRAIN_BATCH * TRAIN_SEQ / ms[-1] * 1e3
+    log(f"  {n / 1e9:.3f} B parameters"
+        + (f", {gates} cross-attention gates at {XATTN_GATE}" if gates
+           else "")
+        + f"; ms per step {[round(m, 1) for m in ms]} (the first cold), "
+        f"{rate:.0f} tokens/s at the last step, peak device memory "
+        f"{peak:.2f} GiB; losses {[round(v, 4) for v in losses]}; grad "
+        f"norms {[round(g, 4) for g in norms]}; launches {got} (forward, "
+        "tensor-core forward, backward, tensor-core backward; 4 shards), "
+        "no plain call")
+    log(f"  bytes between shards per step, by collective: {per_step} "
+        f"({sum(per_step.values()) / 2**30:.2f} GiB in all)")
+    res = {"ms": ms, "tokens_per_s": rate, "peak_gib": peak,
+           "losses": losses, "grad_norms": norms, "bytes": per_step,
+           "fwd": got["launches"], "bwd": got["bwd"]}
+    if share is not None:
+        res.update(_profile_range_share(sharded, opt_state, steps, seed,
+                                        ms[-1], *share))
+    del sharded, opt_state
+    torch.cuda.empty_cache()
+    ccfg = dataclasses.replace(full, name=f"{name}-check",
+                               n_layers=check_layers, dtype=torch.float32)
+
+    def make():
+        m = LM(ccfg, device="cuda", generator=torch.Generator(
+            device="cuda").manual_seed(seed + 8))
+        m.set_xattn_gates(XATTN_GATE)
+        return m
+    res.update(_mesh_vs_one_device(
+        ccfg, mesh, make, seed, f"{check_layers} float32 layer"
+        + ("s" if check_layers > 1 else "")))
+    torch.cuda.empty_cache()
+    log(f"  {name} on the mesh: {time.perf_counter() - t0:.1f} s")
+    return res
+
+
+def phase_train_sharded_mla_xattn(seed: int, smi):
+    """The sharded training path of the MLA and cross-attention kinds
+    (``ShardedLM``'s head-parallel ``mla_fwd_mesh`` and ``cross_fwd_mesh``,
+    the image context split with the batch) for minicpm3-4b and
+    llama-3.2-vision-11b at full width and SHARDED_MLA_XATTN_RUNS' depth
+    (``_train_sharded_cut``; llama-vision's 1600 seeded patch embeddings
+    a step from the trainer): the flash launches are none for MLA, two
+    forward and one backward per GQA layer and shard a step, on the
+    tensor cores; no plain call.  minicpm3's third (warm) step under
+    torch.profiler (device time by kernel, idle share), and the device
+    time of its float32 MLA attention core's kernels in that step, forward
+    and backward, and their share of the step.  Returns per config
+    ``_train_sharded_cut``'s timings."""
+    from repro_torch.models import attention as attn_mod
     out = {}
     for name, (layers, check_layers) in SHARDED_MLA_XATTN_RUNS.items():
-        t0 = time.perf_counter()
-        full = configs.get_config(name)
-        cfg = dataclasses.replace(full, n_layers=layers)
-        log(f"== train on a mesh: {name} at full width, {layers} of its "
-            f"{full.n_layers} layers (card: {smi}); (data {SHARDED_DATA}, "
-            f"model {SHARDED_MODEL}) of {shards} cuda:0 shards, ZeRO-1; "
-            f"global batch {TRAIN_BATCH} x {TRAIN_SEQ}, {steps} steps at lr "
-            "3e-4; remat per pattern unit")
-        model = LM(cfg, device="cuda", generator=torch.Generator(
-            device="cuda").manual_seed(seed))
-        gates = model.set_xattn_gates(XATTN_GATE)
-        n = sum(p.numel() for p in model.parameters())
-        sharded = ShardedLM(model, mesh)
-        del model
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        kernels.reset_counters()
-        sharded.comm.reset_bytes()
-        hist = []
-        _, opt_state, losses = train(
-            model=sharded, steps=steps, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
-            lr=3e-4, seed=seed, verbose=False, history=hist)
-        torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        got = _check_train_counts(cfg, steps, f"train {name} on the mesh",
-                                  shards)
-        norms = [h["grad_norm"] for h in hist]
-        ms = [1e3 * h["seconds"] for h in hist]
-        if len(losses) != steps or not all(
-                math.isfinite(v) for v in losses + norms) or \
-                not all(g > 0 for g in norms):
-            raise AssertionError(f"train {name} on the mesh: losses "
-                                 f"{losses}, grad norms {norms}")
-        per_step = {k: v // steps
-                    for k, v in sorted(sharded.comm.bytes.items())}
-        rate = TRAIN_BATCH * TRAIN_SEQ / ms[-1] * 1e3
-        log(f"  {n / 1e9:.3f} B parameters"
-            + (f", {gates} cross-attention gates at {XATTN_GATE}" if gates
-               else "")
-            + f"; ms per step {[round(m, 1) for m in ms]} (the first cold), "
-            f"{rate:.0f} tokens/s at the last step, peak device memory "
-            f"{peak:.2f} GiB; losses {[round(v, 4) for v in losses]}; grad "
-            f"norms {[round(g, 4) for g in norms]}; launches {got} (forward, "
-            "tensor-core forward, backward, tensor-core backward; 4 shards), "
-            "no plain call")
-        log(f"  bytes between shards per step, by collective: {per_step} "
-            f"({sum(per_step.values()) / 2**30:.2f} GiB in all)")
-        res = {"ms": ms, "tokens_per_s": rate, "peak_gib": peak,
-               "losses": losses, "grad_norms": norms, "bytes": per_step,
-               "fwd": got["launches"], "bwd": got["bwd"]}
-        if "mla" in cfg.layer_kinds:
-            res.update(_profile_mla_share(sharded, opt_state, steps, seed,
-                                          ms[-1]))
-        del sharded, opt_state
-        torch.cuda.empty_cache()
-        ccfg = dataclasses.replace(full, name=f"{name}-check",
-                                   n_layers=check_layers,
-                                   dtype=torch.float32)
-
-        def make(ccfg=ccfg):
-            m = LM(ccfg, device="cuda", generator=torch.Generator(
-                device="cuda").manual_seed(seed + 8))
-            m.set_xattn_gates(XATTN_GATE)
-            return m
-        res.update(_mesh_vs_one_device(
-            ccfg, mesh, make, seed, f"{check_layers} float32 layer"
-            + ("s" if check_layers > 1 else "")))
-        torch.cuda.empty_cache()
-        log(f"  {name} on the mesh: {time.perf_counter() - t0:.1f} s")
-        out[name] = res
+        share = ((attn_mod, "_mla_attend", MLA_RANGE,
+                  "MLA attention core (float32)", "mla_attention")
+                 if name == "minicpm3-4b" else None)
+        out[name] = _train_sharded_cut(name, layers, check_layers, seed,
+                                       smi, share)
     return out
+
+
+#: zamba2-7b on the (data 2, model 2) mesh: (layers of the bf16 run at full
+#: width, layers of the float32 mesh-vs-one-device check).  15 of 81: the
+#: 3-layer prelude and two pattern units of 5 mamba and one mamba_shared
+#: layer (1.49 B parameters; the shared block called at two sites, so its
+#: gradient sums both); the check: the prelude and one unit
+SHARDED_ZAMBA2_RUN = (15, 9)
+
+
+def phase_train_sharded_zamba2(seed: int, smi):
+    """The sharded training path of Mamba2 and zamba2's shared attention
+    block (``ShardedLM``'s head-parallel ``mamba2_fwd_mesh``, the gated
+    norm's sums of squares and the ``out_proj`` partials all-reduced; the
+    shared block's GQA and FFN split as a dense block's, on each shard's
+    slices) for zamba2-7b at full width and SHARDED_ZAMBA2_RUN's depth
+    (``_train_sharded_cut``): two forward and one backward flash launch per
+    shared-block call and shard a step (16 and 8 at D 112), on the tensor
+    cores, no plain call; the third (warm) step under torch.profiler
+    (device time by kernel, idle share), and the device time of the
+    chunked SSD's kernels (``_ssd_chunked``, forward, remat recompute and
+    backward) in that step and their share of it.  Then the prelude and
+    one unit in float32, the mesh against one device.  Returns
+    ``_train_sharded_cut``'s timings."""
+    from repro_torch.models import mamba2 as mamba_mod
+    layers, check_layers = SHARDED_ZAMBA2_RUN
+    return _train_sharded_cut(
+        "zamba2-7b", layers, check_layers, seed, smi,
+        (mamba_mod, "_ssd_chunked", SSD_RANGE, "chunked SSD", "ssd"))
 
 
 def _profile_train_step(model, opt_state, steps: int, seed: int) -> tuple:
@@ -3391,7 +3446,7 @@ def _profile_train_step(model, opt_state, steps: int, seed: int) -> tuple:
     built and the allocator's pools filled by the steps before) on the
     next batch of the run's token pipeline, under torch.profiler: where
     the step's device time goes, by kernel, and the idle share.  Returns
-    the profile and the step's wall ms."""
+    the profile, the step's wall ms and the device's busy ms."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.data import TokenPipeline, TokenPipelineConfig
@@ -3409,9 +3464,9 @@ def _profile_train_step(model, opt_state, steps: int, seed: int) -> tuple:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         ms, _ = once_ms(lambda: step_fn(opt_state, tokens, labels))
-    _device_report(prof, ms, f"{cfg.name} train step {steps + 1} (warm, "
-                   "under torch.profiler)", top=12)
-    return prof, ms
+    busy = _device_report(prof, ms, f"{cfg.name} train step {steps + 1} "
+                          "(warm, under torch.profiler)", top=12)
+    return prof, ms, busy
 
 
 def phase_flash_bwd_times(launches: int):
@@ -4266,7 +4321,10 @@ def main(argv=None) -> int:
     train_mesh = timed("train_sharded", phase_train_sharded, args.seed, smi)
     train_mx = timed("train_sharded_mla_xattn",
                      phase_train_sharded_mla_xattn, args.seed, smi)
-    trains = [train_xlstm, train_lm, train_mesh] + list(train_mx.values())
+    train_z = timed("train_sharded_zamba2", phase_train_sharded_zamba2,
+                    args.seed, smi)
+    trains = [train_xlstm, train_lm, train_mesh, train_z] + \
+        list(train_mx.values())
     log(f"== flash_attention backward times at stablelm-1.6b's train shape "
         f"(card: {smi})")
     rows.append(timed("flash_bwd_times", phase_flash_bwd_times,

@@ -30,9 +30,10 @@ stream; autograd runs each backward node on the stream of its forward,
 and a copy between devices orders both devices' current streams.
 
 :attr:`MeshComm.bytes` counts the bytes copied from one shard to another,
-by kind (``embed``, ``qkv``, ``attn``, ``ffn``, ``seq``, ``loss``,
-``logits``, ``grad``, ``param``), backward passes and remat recomputes
-included.
+by kind (``embed``, ``qkv``, ``attn``, ``ffn``, ``seq``, ``norm`` (a
+Mamba2 gated norm's sums of squares), ``mamba`` (its ``out_proj``
+partials), ``loss``, ``logits``, ``grad``, ``param``), backward passes
+and remat recomputes included.
 """
 
 from __future__ import annotations

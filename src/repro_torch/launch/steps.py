@@ -17,8 +17,9 @@ callable that makes the optimizer state.
     step = build_train_step(cfg, batch=4, seq=4096, mesh=mesh, zero1=True)
 
 With ``mesh=`` the train and prefill steps run on a
-:class:`~repro_torch.models.sharded_lm.ShardedLM` (the dense GQA, MLA and
-cross-attention configs: tensor parallel over ``model``, data parallel
+:class:`~repro_torch.models.sharded_lm.ShardedLM` (the dense GQA, MLA,
+cross-attention and Mamba2 configs, zamba2's shared attention block
+included: tensor parallel over ``model``, data parallel
 over ``data``, ZeRO-1 when ``zero1``); the global batch, and a VLM's
 image context with it, is split in row blocks over the data replicas.
 :func:`cache_shardings` (the decode caches' layout) and

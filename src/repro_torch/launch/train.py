@@ -1,5 +1,6 @@
 """The trainer: any registered arch (reduced or full config) on one
-device, or a dense GQA, MLA or cross-attention config on a mesh, with the
+device, or a dense GQA, MLA, cross-attention or Mamba2 config on a mesh,
+with the
 fault-tolerance substrate wired in -- deterministic data, async
 checkpoints, the preemption hook, the straggler watchdog, elastic
 restore.
@@ -11,16 +12,18 @@ unless ``device="cpu"`` (``--device cpu``) is passed; with ``model_axis``
 when ``devices`` is None; a device may repeat, as the reference's forced
 host devices stand in for a pod), tensor parallel over ``model``, data
 parallel over ``data``, with ZeRO-1 (:class:`ShardedLM`: every config
-whose kinds are in its ``MESH_KINDS``, the dense GQA configs, minicpm3-4b
-and llama-3.2-vision-11b, whose seeded image context is split over the
-data replicas with the tokens).  On the card a GQA layer's attention and
-its gradient run the hand-written kernels (the forward with its row
-statistics, then the backward kernels for dq, dk and dv), on every shard;
-MLA and cross-attention run in plain ops, as the reference's; on the CPU
-the plain attention runs and autograd differentiates it.  On one 80 GB
+whose kinds are in its ``MESH_KINDS``, the dense GQA configs, minicpm3-4b,
+zamba2-7b and llama-3.2-vision-11b, whose seeded image context is split
+over the data replicas with the tokens).  On the card a GQA layer's
+attention and its gradient run the hand-written kernels (the forward
+with its row statistics, then the backward kernels for dq, dk and dv),
+on every shard; MLA, cross-attention and Mamba2 run in plain ops, as the
+reference's; on the CPU the plain attention runs and autograd
+differentiates it.  On one 80 GB
 card stablelm-1.6b and xlstm-350m train at full width and depth, and on
 a (data 2, model 2) mesh of four ``cuda:0`` shards stablelm-1.6b at full
-depth, minicpm3-4b at 16 of its 62 layers and llama-3.2-vision-11b at one
+depth, minicpm3-4b at 16 of its 62 layers, zamba2-7b at its prelude and
+two pattern units (15 of 81 layers) and llama-3.2-vision-11b at one
 pattern unit (their state at full depth does not fit one card).
 Checkpoints hold the full logical leaves, whatever the mesh: a run
 resumes on its own mesh bit for bit, and on another mesh (or one device)
@@ -39,6 +42,11 @@ Usage::
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch llama-3.2-vision-11b --reduced --steps 20 --batch 4 --seq 16 \\
         --model-axis 2 --devices cpu,cpu,cpu,cpu --ckpt-dir build/ckpt_vlm
+    # reduced zamba2-7b (Mamba2 head parallel, the shared attention block
+    # called at 3 sites) on a (2, 2) CPU mesh
+    PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-7b \\
+        --reduced --steps 4 --batch 4 --seq 16 --model-axis 2 \\
+        --devices cpu,cpu,cpu,cpu
     # CPU smoke
     PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-350m \\
         --reduced --steps 50 --batch 8 --seq 128 --device cpu \\

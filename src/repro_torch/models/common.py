@@ -153,12 +153,15 @@ def embed_init(gen: Optional[torch.Generator], shape: Sequence[int],
 # norms
 # --------------------------------------------------------------------------
 
-def rms_norm(x: torch.Tensor, scale: torch.Tensor,
-             eps: float = 1e-6) -> torch.Tensor:
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
+             mean_sq: Optional[torch.Tensor] = None) -> torch.Tensor:
     """RMS norm in float32, scaled by ``1 + scale`` (a zero-init scale is
-    the identity), returned in x's type."""
+    the identity), returned in x's type.  ``mean_sq``: the float32 mean of
+    squares over the last dimension, where x holds only a slice of it (a
+    model shard's channels), else computed from x."""
     xf = x.float()
-    var = xf.square().mean(dim=-1, keepdim=True)
+    var = (xf.square().mean(dim=-1, keepdim=True) if mean_sq is None
+           else mean_sq)
     y = xf * torch.rsqrt(var + eps)
     return (y * (1.0 + scale.float())).to(x.dtype)
 

@@ -1,4 +1,5 @@
-"""Mamba2 (SSD) block: zamba2-7b's backbone, on one device.
+"""Mamba2 (SSD) block: zamba2-7b's backbone, on one device or head
+parallel on the model shards of a mesh (:func:`mamba2_fwd_mesh`).
 
 Port of ``repro/models/mamba2.py``.  The full-sequence pass is the
 *chunked* state-space-dual algorithm (Mamba2 paper SS6): the sequence is
@@ -13,9 +14,17 @@ kernel, so the port computes it in plain torch ops on every device.  Every
 rounding of the reference is kept: in a bf16 model the decays and their
 cumulative sums are float32, ``exp(decay)`` is cast to the compute type,
 ``C.B`` and ``x dt`` are in the compute type, the chunk states and the
-inter-chunk recurrence are float32.  The reference's
-``FLAGS["mamba_head_constraints"]`` only picks a sharding of the heads, so
-nothing here reads it (one device).
+inter-chunk recurrence are float32.  One departure, in the gradient
+alone: the intra-chunk decays are masked before their exp, where the
+reference masks after it; the outputs are the same bits, and where
+``exp(cum_t - cum_s)`` above the diagonal overflows (zamba2's widths in
+any chunk of 256) the gradient stays finite, where the reference's is
+NaN.  The reference's
+``FLAGS["mamba_head_constraints"]`` only constrains ``xh`` and ``dt`` to
+``heads_inner``, a layout of the same function, so nothing here reads
+it: on a mesh the ``inner`` leaves already lie split by heads, each shard
+runs the SSD on its heads, and the gated norm's sum of squares and the
+``out_proj`` partials are the only things summed over the shards.
 
 Layout: d_inner = expand * d_model, H = d_inner / P heads of P = head_dim,
 B and C shared across heads (one group), state N = d_state.
@@ -25,7 +34,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -191,12 +200,16 @@ def _ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     # intra-chunk: M[t,s] = (C_t . B_s) exp(cum_t - cum_s) 1[s<=t]
     cb = torch.matmul(Cc.to(cdtype), Bc.to(cdtype).transpose(-1, -2))
     cum_h = cum.permute(0, 1, 3, 2)                           # (Bz,nc,H,L)
-    # a copy even in float32: autograd keeps exp's output, which the
-    # in-place mask and product below would otherwise overwrite
-    m = (cum_h[..., :, None] - cum_h[..., None, :]).exp_().to(cdtype,
-                                                              copy=True)
+    # the exponents above the diagonal are set to -inf before the exp, so
+    # those entries are 0, as the reference's mask after the exp makes
+    # them, and so is their gradient: exp(cum_t - cum_s) for s > t
+    # overflows at zamba2's widths (|dt a| up to ~11 a step), and the
+    # reference's masked inf times a zero cotangent makes every gradient
+    # NaN.  A copy even in float32: autograd keeps exp's output, which the
+    # in-place product below would otherwise overwrite
     tri = torch.ones((L, L), dtype=torch.bool, device=xh.device).tril()
-    m.masked_fill_(~tri, 0)
+    m = (cum_h[..., :, None] - cum_h[..., None, :]).masked_fill_(
+        ~tri, float("-inf")).exp_().to(cdtype, copy=True)
     m.mul_(cb[:, :, None])                                    # (Bz,nc,H,L,L)
     xdt = xc * dtc[..., None].to(cdtype)                      # (Bz,nc,L,H,P)
     y = torch.matmul(m, xdt.permute(0, 1, 3, 2, 4)).permute(0, 1, 3, 2, 4)
@@ -237,28 +250,104 @@ def _ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     return y, state
 
 
+def _gated(p: Params, x: torch.Tensor, cfg: Mamba2Config,
+           heads: Optional[Tuple[int, int]] = None):
+    """The block up to its norm, over the SSD heads ``heads`` (a range of
+    the H heads; all of them when None): ``y * silu(z)`` in x's type (B, S,
+    the heads' channels), and the decode cache ``{"conv": {"x", "B", "C"},
+    "ssm"}`` (the last W-1 conv inputs, the final float32 state).  ``p``
+    holds the heads' channels of ``w_z``, ``w_x``, ``conv_x`` and
+    ``conv_xb``, and the whole ``w_B``, ``w_C``, ``w_dt``, ``conv_B*``,
+    ``conv_C*``, ``dt_bias``, ``a_log`` and ``d_skip``: B, C and dt are
+    computed whole, then the heads' slices of dt, a and D are taken."""
+    bsz, s, _ = x.shape
+    h0, h1 = (0, cfg.n_heads) if heads is None else heads
+    z = x @ p["w_z"]
+    xin, conv_x = _causal_conv(x @ p["w_x"], p["conv_x"], p["conv_xb"])
+    B, conv_B = _causal_conv(x @ p["w_B"], p["conv_B"], p["conv_Bb"])
+    C, conv_C = _causal_conv(x @ p["w_C"], p["conv_C"], p["conv_Cb"])
+    dt = _softplus((x @ p["w_dt"]).float() + p["dt_bias"])[..., h0:h1]
+    a = -torch.exp(p["a_log"][h0:h1])
+    xh = xin.reshape(bsz, s, h1 - h0, cfg.head_dim)
+    y, state = _ssd_chunked(xh, dt, a, B.float(), C.float(), cfg)
+    # y (compute type) + xh D (float32: a bf16 x times a float32 D), then
+    # rounded to x's type, as the reference's type promotion does
+    y = (y + xh * p["d_skip"][h0:h1, None]).reshape(bsz, s, -1)
+    return y.to(x.dtype) * _silu(z), {
+        "conv": {"x": conv_x, "B": conv_B, "C": conv_C}, "ssm": state}
+
+
 def mamba2_fwd(p: Params, x: torch.Tensor, cfg: Mamba2Config,
                make_cache: bool = False):
     """Full-sequence Mamba2 block.  x: (B, S, D) -> (out (B, S, D), cache):
     with ``make_cache`` the decode cache ``{"conv": {"x", "B", "C"}, "ssm"}``
     (the last W-1 conv inputs, the final float32 state), else None."""
-    bsz, s, _ = x.shape
-    h, pd = cfg.n_heads, cfg.head_dim
-    z = x @ p["w_z"]
-    xin, conv_x = _causal_conv(x @ p["w_x"], p["conv_x"], p["conv_xb"])
-    B, conv_B = _causal_conv(x @ p["w_B"], p["conv_B"], p["conv_Bb"])
-    C, conv_C = _causal_conv(x @ p["w_C"], p["conv_C"], p["conv_Cb"])
-    dt = _softplus((x @ p["w_dt"]).float() + p["dt_bias"])
-    a = -torch.exp(p["a_log"])
-    xh = xin.reshape(bsz, s, h, pd)
-    y, state = _ssd_chunked(xh, dt, a, B.float(), C.float(), cfg)
-    # y (compute type) + xh D (float32: a bf16 x times a float32 D), then
-    # rounded to x's type, as the reference's type promotion does
-    y = (y + xh * p["d_skip"][:, None]).reshape(bsz, s, cfg.d_inner)
-    y = _rms(y.to(x.dtype) * _silu(z), p["norm_scale"])
-    cache = ({"conv": {"x": conv_x, "B": conv_B, "C": conv_C},
-              "ssm": state} if make_cache else None)
-    return y @ p["out_proj"], cache
+    g, cache = _gated(p, x, cfg)
+    y = _rms(g, p["norm_scale"])
+    return y @ p["out_proj"], (cache if make_cache else None)
+
+
+# --------------------------------------------------------------------------
+# on a mesh
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MambaShardPlan:
+    """What one model shard computes of a Mamba2 layer on a mesh: its
+    channels of d_inner (columns of ``w_z``, ``w_x`` and ``conv_x``,
+    entries of ``conv_xb`` and ``norm_scale``, rows of ``out_proj``) and
+    the SSD heads they make."""
+    inner: Tuple[int, int]
+    heads: Tuple[int, int]
+
+
+def mamba_mesh_plan(cfg: Mamba2Config, n_model: int,
+                    split: bool) -> List[MambaShardPlan]:
+    """Each model shard's part of a Mamba2 layer: equal blocks of the
+    d_inner channels where the reference's ``inner`` is on the model axis
+    (``split``), every channel otherwise.  A block must hold whole SSD
+    heads: one that ends inside a head raises (ROADMAP A3.4.3)."""
+    di, pd = cfg.d_inner, cfg.head_dim
+    if not split:
+        return [MambaShardPlan((0, di), (0, cfg.n_heads))] * n_model
+    w = di // n_model
+    if w % pd:
+        raise ValueError(
+            f"a Mamba2 d_inner of {di} on {n_model} model shards splits "
+            f"into blocks of {w} channels, which end inside a {pd}-wide SSD "
+            "head: a split inside an SSD head does not run on a mesh "
+            "(ROADMAP A3.4.3)")
+    return [MambaShardPlan((m * w, (m + 1) * w), (m * w // pd,
+                                                   (m + 1) * w // pd))
+            for m in range(n_model)]
+
+
+def mamba2_fwd_mesh(ps, xs: List[torch.Tensor], cfg: Mamba2Config,
+                    plans: List[MambaShardPlan], comm,
+                    group: Sequence[int]) -> List[torch.Tensor]:
+    """:func:`mamba2_fwd` of one data replica over its model shards
+    ``group``, head parallel: member ``j`` holds the replicated input
+    ``xs[j]`` (B, S, d_model), the replicated ``w_B``, ``w_C``, ``w_dt``,
+    ``conv_B*``, ``conv_C*``, ``dt_bias``, ``a_log`` and ``d_skip``, and
+    its slices ``ps[j]`` of the ``inner`` leaves as ``plans[j]`` says.
+    Each member runs the chunked SSD on its heads (heads do not interact
+    there: B and C are one group shared by all).  The gated norm is over
+    the whole d_inner: each member's float32 sum of squares is summed over
+    the group (:meth:`MeshComm.all_reduce`) and divided by d_inner, the
+    mean of squares that ``rms_norm`` then takes.  Each member multiplies
+    by its rows of ``out_proj`` and the partials are summed over the group
+    in float32, rounded once.  Where ``inner`` is replicated every member
+    computes the whole block (:func:`mamba2_fwd`'s bits) and nothing is
+    summed.  Returns each member's (B, S, d_model) output."""
+    gs = [_gated(p, x, cfg, pl.heads)[0] for p, pl, x in zip(ps, plans, xs)]
+    if plans[0].inner == (0, cfg.d_inner):
+        return [_rms(g, p["norm_scale"]) @ p["out_proj"]
+                for p, g in zip(ps, gs)]
+    sums = comm.all_reduce([g.float().square().sum(-1, keepdim=True)
+                            for g in gs], group, "norm")
+    outs = [_rms(g, p["norm_scale"], mean_sq=sq / cfg.d_inner)
+            @ p["out_proj"] for p, g, sq in zip(ps, gs, sums)]
+    return comm.all_reduce(outs, group, "mamba")
 
 
 def mamba2_decode(p: Params, x: torch.Tensor, cache, cfg: Mamba2Config):

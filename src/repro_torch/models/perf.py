@@ -13,8 +13,15 @@ MLA on a mesh is head parallel whatever it says
 (:func:`repro_torch.models.attention.mla_fwd_mesh`: the weights already
 lie split by heads, so one all-reduce and no weight regather); the
 port's sequence-parallel MLA follows ``ArchConfig.seq_parallel`` alone
-(:class:`repro_torch.models.sharded_lm.ShardedLM`).  The Mamba2 flag
-waits for Mamba2 on a mesh (ROADMAP A3.4)."""
+(:class:`repro_torch.models.sharded_lm.ShardedLM`).
+``mamba_head_constraints`` chooses nothing on the port's mesh either: it
+only constrains the reference's ``xh`` and ``dt`` to ``heads_inner``, a
+layout of the same function, and the port's Mamba2 on a mesh is head
+parallel whatever it says
+(:func:`repro_torch.models.mamba2.mamba2_fwd_mesh`: the ``inner`` leaves
+already lie split by heads, so each shard runs the SSD on its own heads
+and only the gated norm's sums of squares and the ``out_proj`` partials
+are summed)."""
 
 FLAGS = {
     # mLSTM: chunked query processing with static causal block skipping

@@ -3,9 +3,10 @@
 
 Port of what the reference's ``LM`` does under GSPMD with
 ``make_lm_rules(mesh)``, for the dense GQA blocks (``attn``,
-``attn_local``, ``attn_global``, ``attn_bidir``), MLA (``mla``) and
-gated cross-attention (``xattn``).  :class:`ShardedLM` holds each shard's
-slices of the parameters as tensors of its own on its device
+``attn_local``, ``attn_global``, ``attn_bidir``), MLA (``mla``), gated
+cross-attention (``xattn``) and Mamba2 with zamba2's shared attention
+block (``mamba``, ``mamba_shared``).  :class:`ShardedLM` holds each
+shard's slices of the parameters as tensors of its own on its device
 (:func:`repro_torch.distributed.sharding.leaf_layouts`: the reference's
 specs, one tensor per layer); a mesh may repeat a device.  A step is one
 autograd graph over the shards, the collectives of
@@ -32,6 +33,16 @@ autograd graph over the shards, the collectives of
   Each ends with an all-reduce of the ``wo`` partials; the FFN splits
   ``w_gate``/``w_up`` by column and ``w_down`` by row, then an
   all-reduce;
+* Mamba2 is head parallel over the ``inner`` channels
+  (:func:`.mamba2.mamba2_fwd_mesh`): each shard projects its columns of
+  ``w_z``/``w_x``, convolves its channels, computes B, C and dt whole from
+  the replicated leaves, runs the chunked SSD on its heads, and the
+  gated norm's sums of squares and the ``out_proj`` partials are
+  all-reduced.  zamba2's shared attention block
+  (one parameter set, ``shared_attn``) is an ``attn`` block on the mesh,
+  GQA and FFN split as above; every ``mamba_shared`` layer calls each
+  shard's slices of it, so autograd sums its gradient over the call
+  sites before the optimizer sums it over the shards that hold it;
 * with ``cfg.seq_parallel`` (the reference's sequence parallelism: every
   block weight replicated) each model shard of an ``mla`` block computes
   its contiguous block of S / M query rows, the attention against the
@@ -52,9 +63,11 @@ that splits inside a head).  Where a split block ends inside a head
 (reduced minicpm3's 96 ``wq_b`` columns on a model axis of 8), a shard
 attends every head its rows of ``wo`` touch, whole.  The bf16 partial
 sums of the all-reduces are summed in float32 and rounded once to bf16.
-The other block kinds (MoE, Mamba2, xLSTM) do not run on a mesh yet
-(ROADMAP A3.4): their expert- and inner-parallel layouts differ; a model
-of them raises here, and their parameter layouts
+A Mamba2 block that would split inside an SSD head raises.  The other
+block kinds do not run on a mesh yet: MoE and its dense blocks (``moe``,
+``dense``; ROADMAP A3.4.1, expert parallel) and xLSTM (``mlstm``,
+``slstm``; the xLSTM half of A3.4.3).  A model of them raises here, and
+their parameter layouts
 (:func:`~repro_torch.distributed.sharding.param_shardings`) are ported.
 """
 
@@ -71,12 +84,16 @@ from ..distributed.sharding import (gather_tree, leaf_layouts,
                                     make_lm_rules, split_tree)
 from . import attention as attn_mod
 from . import ffn as ffn_mod
+from . import mamba2 as mamba_mod
 from .common import softmax_xent_sum_mesh
 from .lm import LM, ParamTree, _apply_norm, image_context
 
 #: the block kinds that run on a mesh
 MESH_KINDS = ("attn", "attn_local", "attn_global", "attn_bidir", "mla",
-              "xattn")
+              "xattn", "mamba", "mamba_shared")
+#: the kinds whose blocks are Mamba2 (a ``mamba_shared`` block then calls
+#: the shared attention block)
+MAMBA_KINDS = ("mamba", "mamba_shared")
 
 
 def _nest(flat: Dict[str, torch.Tensor]) -> Dict[str, Any]:
@@ -107,25 +124,31 @@ class ShardedLM:
         if other:
             raise ValueError(
                 f"{cfg.name}: block kinds {other} do not run on a mesh yet "
-                "(ROADMAP A3.4: expert-parallel MoE, Mamba2 and xLSTM inner "
-                f"sharding); on a mesh the port runs {MESH_KINDS}")
+                "(ROADMAP A3.4.1, expert-parallel MoE for moe and dense; "
+                "A3.4.3, the xLSTM inner sharding for mlstm and slstm); on "
+                f"a mesh the port runs {MESH_KINDS}")
         self.cfg, self.mesh = cfg, mesh
         self.rules = make_lm_rules(mesh)
         self.comm = MeshComm(mesh)
         self.layouts = leaf_layouts(model, self.rules)
-        params = {n: p.detach() for n, p in model.named_parameters()}
-        parts = split_tree(params, self.specs, mesh)
-        self.shards = [ParamTree(_nest(part)) for part in parts]
         n_model = self.comm.n_model
 
         def split(name):
             return self.layouts[name].model_dim is not None
 
         # each kind's shard plans and FFN split, from its first layer (the
-        # layers of a kind have one shape, so one layout)
+        # layers of a kind have one shape, so one layout), by what the kind
+        # holds; zamba2's shared block under the key "shared_attn"
         self.attn_plans: Dict[str, list] = {}
         self.ffn_split: Dict[str, bool] = {}
+        self.mamba_plans: Optional[list] = None
         for i, kind in enumerate(cfg.layer_kinds):
+            if kind in MAMBA_KINDS:
+                if self.mamba_plans is None:
+                    self.mamba_plans = mamba_mod.mamba_mesh_plan(
+                        cfg.mamba_cfg(), n_model,
+                        split(f"layers.{i}.mamba.w_x"))
+                continue
             if kind in self.attn_plans:
                 continue
             at = f"layers.{i}.attn"
@@ -138,6 +161,14 @@ class ShardedLM:
                     cfg.attn_cfg("attn"), n_model, split(f"{at}.wq"),
                     split(f"{at}.wk"))
             self.ffn_split[kind] = split(f"layers.{i}.ffn.w_up")
+        if "mamba_shared" in cfg.layer_kinds:
+            self.attn_plans["shared_attn"] = attn_mod.gqa_mesh_plan(
+                cfg.attn_cfg("attn"), n_model, split("shared_attn.attn.wq"),
+                split("shared_attn.attn.wk"))
+            self.ffn_split["shared_attn"] = split("shared_attn.ffn.w_up")
+        params = {n: p.detach() for n, p in model.named_parameters()}
+        parts = split_tree(params, self.specs, mesh)
+        self.shards = [ParamTree(_nest(part)) for part in parts]
         self._head = "embed" if cfg.tie_embed else "lm_head"
         v = cfg.vocab // n_model if split(self._head) else cfg.vocab
         self.vocab_rows = [(m * v, (m + 1) * v) if split(self._head)
@@ -215,12 +246,34 @@ class ShardedLM:
                   for x in xs]
         return xs
 
-    def _block(self, kind: str, ps, xs, group, positions, ctxs):
+    def _block(self, kind: str, ps, xs, group, positions, ctxs,
+               shared=None):
+        """Layer ``kind`` of one data replica: ``ps`` its members' slices
+        of the layer, ``xs`` their copies of the residual stream;
+        ``shared``: their slices of zamba2's shared attention block (read
+        by ``mamba_shared`` alone)."""
         cfg, comm = self.cfg, self.comm
+        if kind in MAMBA_KINDS:
+            hs = [_apply_norm(p["ln1"], x, cfg) for p, x in zip(ps, xs)]
+            m = mamba_mod.mamba2_fwd_mesh([p["mamba"] for p in ps], hs,
+                                          cfg.mamba_cfg(), self.mamba_plans,
+                                          comm, group)
+            xs = [x + t for x, t in zip(xs, m)]
+            if kind == "mamba_shared":  # the shared block is an attn block
+                xs = self._attn_block("attn", "shared_attn", shared, xs,
+                                      group, positions, ctxs)
+            return xs
         if kind == "mla" and cfg.seq_parallel:
             return self._mla_rows(ps, xs, group, positions)
+        return self._attn_block(kind, kind, ps, xs, group, positions, ctxs)
+
+    def _attn_block(self, kind: str, key: str, ps, xs, group, positions,
+                    ctxs):
+        """An attention block (its attention, then its FFN) of kind
+        ``kind``, its shard plans and FFN split under ``key``."""
+        cfg, comm = self.cfg, self.comm
         hs = [_apply_norm(p["ln1"], x, cfg) for p, x in zip(ps, xs)]
-        attn, plans = [p["attn"] for p in ps], self.attn_plans[kind]
+        attn, plans = [p["attn"] for p in ps], self.attn_plans[key]
         if kind == "mla":
             a = attn_mod.mla_fwd_mesh(attn, hs, cfg.mla_cfg(), plans, comm,
                                       group, positions)
@@ -235,7 +288,7 @@ class ShardedLM:
         xs = [x + t for x, t in zip(xs, a)]
         hs = [_apply_norm(p["ln2"], x, cfg) for p, x in zip(ps, xs)]
         f = ffn_mod.ffn_fwd_mesh([p["ffn"] for p in ps], hs, cfg.ffn_cfg(),
-                                 self.ffn_split[kind], comm, group)
+                                 self.ffn_split[key], comm, group)
         if "post_ln2" in ps[0]:
             f = [_apply_norm(p["post_ln2"], t, cfg) for p, t in zip(ps, f)]
         return [x + t for x, t in zip(xs, f)]
@@ -269,6 +322,8 @@ class ShardedLM:
         group = self.comm.model_group(rep)
         ps = [self.shards[k] for k in group]
         layers = [p["layers"] for p in ps]
+        shared = ([p["shared_attn"] for p in ps] if "shared_attn" in ps[0]
+                  else None)
         s = tokens[0].shape[1]
         positions = [torch.arange(s, device=self.comm.devices[k])
                      for k in group]
@@ -277,13 +332,17 @@ class ShardedLM:
         def run(xs, lo: int, hi: int):
             for i in range(lo, hi):
                 xs = self._block(kinds[i], [t[str(i)] for t in layers], xs,
-                                 group, positions, ctxs)
+                                 group, positions, ctxs, shared)
             return xs
 
         xs = self._embed(ps, group, tokens)
         n_pre, n_pat = len(cfg.prelude), len(cfg.pattern)
-        xs = run(xs, 0, n_pre)
         remat = remat and torch.is_grad_enabled()
+        if remat and n_pre:
+            xs = torch.utils.checkpoint.checkpoint(run, xs, 0, n_pre,
+                                                   use_reentrant=False)
+        else:
+            xs = run(xs, 0, n_pre)
         for lo in range(n_pre, len(kinds), n_pat):
             if remat:
                 xs = torch.utils.checkpoint.checkpoint(
@@ -311,7 +370,10 @@ class ShardedLM:
         (B / data replicas, S, d_model) tensor per shard, in mesh order
         (each replica's rows, replicated over its model shards).  ``remat``
         recomputes each pattern unit in the backward pass
-        (``torch.utils.checkpoint``, as :meth:`LM.forward`)."""
+        (``torch.utils.checkpoint``, as :meth:`LM.forward`), and the
+        prelude as one more such segment: unlike :meth:`LM.forward`, which
+        keeps it, since zamba2's three prelude Mamba2 layers would keep
+        their SSD decay tensors on every shard through the step."""
         ctx = self._ctx(ctx, tokens.shape[0])
         hidden = []
         for rep in range(self.comm.n_rep):

@@ -260,6 +260,50 @@ def test_chunked_forward_equals_stepwise_decode(s):
                                    _np(wc["conv"][k]), **F32_TOL)
 
 
+def _ssd_stepwise(xh, dt, a, B, C):
+    """The SSD as its recurrence, one step at a time: S <- exp(dt a) S +
+    dt x B^T, y = S C."""
+    bsz, s, h, p = xh.shape
+    state = xh.new_zeros((bsz, h, p, B.shape[-1]))
+    ys = []
+    for t in range(s):
+        upd = (dt[:, t, :, None] * xh[:, t])[..., None] * B[:, t, None, None]
+        state = state * torch.exp(dt[:, t] * a)[:, :, None, None] + upd
+        ys.append(torch.einsum("bhpn,bn->bhp", state, C[:, t]))
+    return torch.stack(ys, 1)
+
+
+def test_ssd_gradient_where_the_decays_overflow():
+    """Decays as strong as zamba2's (dt a up to -80 a step, so exp(cum_t -
+    cum_s) above the diagonal overflows float32 within a chunk of 16):
+    ``_ssd_chunked``'s output and its gradients (x, dt, a, B, C) are
+    finite and equal the float64 step-by-step recurrence's, rtol 1e-3
+    and atol 1e-5 of each gradient's max.  Masking after the exp, as the
+    reference does, makes every gradient NaN here."""
+    rng = np.random.default_rng(21)
+    bsz, s, h, p, n = 2, 32, 4, 8, 8
+    cfg = tm2.Mamba2Config(d_model=16, d_state=n, head_dim=p, chunk=16)
+    leaves = [rng.standard_normal((bsz, s, h, p)),
+              rng.uniform(0.05, 0.2, (bsz, s, h)),
+              -np.array([50.0, 100.0, 200.0, 400.0]),
+              rng.standard_normal((bsz, s, n)),
+              rng.standard_normal((bsz, s, n))]
+    w = torch.from_numpy(rng.standard_normal((bsz, s, h, p)))
+    grads = {}
+    for dtype in (torch.float32, torch.float64):
+        ts = [torch.tensor(v, dtype=dtype, requires_grad=True)
+              for v in leaves]
+        y = (tm2._ssd_chunked(*ts, cfg)[0] if dtype == torch.float32
+             else _ssd_stepwise(*ts))
+        (y * w.to(dtype)).sum().backward()
+        grads[dtype] = [y.detach().double()] + [t.grad.double() for t in ts]
+    for i, (got, want) in enumerate(zip(*grads.values())):
+        assert bool(torch.isfinite(got).all()), i
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-3,
+                                   atol=1e-5 * float(want.abs().max()),
+                                   err_msg=str(i))
+
+
 def test_float32_leaves_after_loading():
     """A bf16 reduced zamba2 loaded from the reference's tree: every Mamba2
     block's dt_bias, a_log and d_skip stay float32 and hold the

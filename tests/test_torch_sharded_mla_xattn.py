@@ -350,8 +350,8 @@ def test_cross_attention_layer_on_a_group(model_axis, dtype):
 
 def test_image_context_is_required_and_refused():
     """A VLM on a mesh without its context raises, as ``LM`` does; a text
-    config given one raises; the kinds still off the mesh raise naming
-    ROADMAP A3.4."""
+    config given one raises; the kinds still off the mesh (xLSTM here)
+    raise naming ROADMAP A3.4."""
     _, vcfg = _cfgs(VLM)
     vlm = ShardedLM(LM(vcfg, device="cpu"), _port_mesh(2))
     tok = torch.zeros((B, S), dtype=torch.int32)
@@ -362,7 +362,7 @@ def test_image_context_is_required_and_refused():
     with pytest.raises(ValueError, match="no cross-attention"):
         mla.prefill(tok, torch.zeros((B, 4, mcfg.d_model)))
     with pytest.raises(ValueError, match="A3.4"):
-        ShardedLM(LM(tconfigs.reduced("zamba2-7b"), device="meta"),
+        ShardedLM(LM(tconfigs.reduced("xlstm-350m"), device="meta"),
                   _port_mesh(2))
 
 

@@ -15,9 +15,11 @@ the zoo's whole-model band (``tests/test_torch_lm_zoo.py``).  The port's
 sharded step also holds to its own single-device step, gives the same bits
 with ZeRO-1 on and off and on a repeat, resumes a preempted run bit for
 bit on its own mesh and within the float32 band on another, and refuses
-the block kinds that do not run on a mesh yet (MoE, Mamba2, xLSTM; the
-MLA and cross-attention configs, minicpm3-4b and llama-3.2-vision-11b,
-run on a mesh and are held in ``tests/test_torch_sharded_mla_xattn.py``).
+the block kinds that do not run on a mesh yet (MoE, xLSTM) and a Mamba2
+split inside an SSD head (the MLA and cross-attention configs,
+minicpm3-4b and llama-3.2-vision-11b, run on a mesh and are held in
+``tests/test_torch_sharded_mla_xattn.py``; zamba2-7b's Mamba2 and shared
+attention block in ``tests/test_torch_sharded_mamba.py``).
 """
 
 import dataclasses
@@ -43,7 +45,8 @@ from repro_torch.models.sharded_lm import ShardedLM
 
 B, S = 8, 16
 DENSE = ("stablelm-1.6b", "codeqwen1.5-7b", "gemma2-9b", "hubert-xlarge")
-#: the configs whose kinds do not run on a mesh yet
+#: the configs whose kinds do not run on a mesh yet (zamba2-7b's run
+#: there, but not split inside an SSD head)
 OTHER = tuple(n for n in jconfigs.ARCH_NAMES
               if n not in DENSE + ("minicpm3-4b", "llama-3.2-vision-11b"))
 MESHES = {"4x2": ("host_mesh", 2), "2x4": ("mesh82", 4)}
@@ -301,10 +304,15 @@ def test_preempt_and_resume_on_its_mesh_and_on_another(tmp_path):
 
 @pytest.mark.parametrize("name", OTHER)
 def test_block_kinds_off_the_mesh_raise(name):
-    """MoE, Mamba2 and xLSTM configs do not run on a mesh yet (ROADMAP
-    A3.4): building their sharded model raises, naming
-    the queue item, and nothing runs unsharded in its place."""
+    """MoE and xLSTM configs do not run on a mesh yet (ROADMAP A3.4.1 and
+    A3.4.3's xLSTM half), nor does reduced zamba2 with its d_inner of 256
+    in one SSD head, which two model shards would split inside the head
+    (A3.4.3): building their sharded model raises, naming the queue item,
+    and nothing runs unsharded in its place."""
     tcfg = tconfigs.reduced(name)
+    if name == "zamba2-7b":
+        tcfg = dataclasses.replace(tcfg,
+                                   mamba_head_dim=tcfg.mamba_cfg().d_inner)
     model = LM(tcfg, device="meta")
     with pytest.raises(ValueError, match="A3.4"):
         ShardedLM(model, _port_mesh(2))
